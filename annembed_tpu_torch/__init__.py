@@ -1,0 +1,30 @@
+"""annembed_tpu_torch — the PyTorch / CUDA port of ``annembed_tpu``.
+
+Same module layout and names as the JAX package, which stays the
+reference the port is tested against.  This package imports torch and
+never jax (nor ``annembed_tpu``, whose import pulls in jax).  Its one
+hand-written kernel, ``csrc/top1_l2.cu``, carries the hierarchical
+projection (``ops/top1.py``).
+
+Public surface: embed, Embedder, DiffusionMaps, EmbedderParams,
+DiffusionParams, KnnParams, KGraph, NodeParams, to_proba_edges,
+build_kgraph, recall_at_k, build_projection, KGraphProjection.
+"""
+
+from .params import (EmbedderParams, DiffusionParams, KnnParams, PROBA_MIN)
+from .api import embed
+from .graph.kgraph import KGraph
+from .graph.proba import to_proba_edges, NodeParams
+from .knn.api import build_kgraph, recall_at_k
+from .knn.hierarchy import build_projection, KGraphProjection
+from .optim.embedder import Embedder
+from .spectral.diffmaps import DiffusionMaps
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "embed", "Embedder", "DiffusionMaps", "EmbedderParams",
+    "DiffusionParams", "KnnParams", "PROBA_MIN", "KGraph", "NodeParams",
+    "to_proba_edges", "build_kgraph", "recall_at_k", "build_projection",
+    "KGraphProjection",
+]

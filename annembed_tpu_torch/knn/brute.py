@@ -1,0 +1,116 @@
+"""Exact kNN graph and kNN search by tiled distance panels + top-k.
+
+Port of annembed_tpu/knn/brute.py.  Queries run in row blocks (a Python
+loop; the JAX package's ``lax.map``), so at most one (block, m) panel is
+live.  The last block is simply shorter: nothing is padded, so no padded
+row can reach a result.  Self edges are masked by index (not by
+distance, which would break on duplicate points).
+
+The panel's expansion |q|^2 + |x|^2 - 2 q.x carries ~1e-3 relative
+cancellation error in f32, enough to swap near-tied neighbours, so the
+top (k + 8) candidates are re-ranked with exact elementwise (q - x)^2
+distances.  Ties go to the lower corpus index at both stages, as
+``lax.top_k`` orders them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .distances import check_distance, corpus_sqnorm, l2_panel_sq, panel_rows
+
+_RERANK_EXTRA = 8
+
+
+def _check_knobs(dtype: str, topk_recall: float) -> None:
+    if topk_recall > 0.0:
+        raise NotImplementedError(
+            "topk_recall > 0 selects candidates with the TPU ApproxTopK "
+            "reduction, which has no counterpart here; use 0 (exact)")
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"panel dtype {dtype!r} is not ported (ROADMAP A8 brings the "
+            "bfloat16 IVF join panels); use float32")
+
+
+def _sorted_by_value_then_index(vals: torch.Tensor, idx: torch.Tensor):
+    """Row-wise order by (value, index): ties to the lower index."""
+    by_idx = torch.argsort(idx, dim=1)
+    vals = torch.gather(vals, 1, by_idx)
+    idx = torch.gather(idx, 1, by_idx)
+    pos = torch.sort(vals, dim=1, stable=True).indices
+    return torch.gather(vals, 1, pos), torch.gather(idx, 1, pos)
+
+
+def _exact_l2_rerank(q, x, cand_idx, k: int, self_ids=None):
+    """Re-rank candidate indices by exact L2 distance.
+
+    q: (b, d), cand_idx: (b, kk) int64 -> (idx (b, k) int32, dist (b, k)).
+    ``self_ids`` (b,) masks the query's own id before selection: when kk
+    reaches n the panel's masked self column re-enters the candidates
+    and its recomputed exact distance (0) would win."""
+    xc = x[cand_idx]                                    # (b, kk, d)
+    d2 = torch.square(q[:, None, :] - xc).sum(-1)       # (b, kk)
+    if self_ids is not None:
+        d2 = d2.masked_fill(cand_idx == self_ids[:, None], float("inf"))
+    d2_s, pos = torch.sort(d2, dim=1, stable=True)
+    idx = torch.gather(cand_idx, 1, pos[:, :k])
+    return idx.to(torch.int32), torch.sqrt(d2_s[:, :k].clamp_min(0.0))
+
+
+def _block_topk(q, corpus, x_sq, k: int, kk: int, self_ids=None):
+    """One query-block panel + candidate top-kk + exact rerank — the
+    shared body of the graph build and the corpus search."""
+    d2 = l2_panel_sq(q, corpus, x_sq)
+    if self_ids is not None:
+        d2[torch.arange(q.shape[0], device=q.device), self_ids] = float("inf")
+    vals, idx = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
+    _, idx = _sorted_by_value_then_index(vals, idx)
+    return _exact_l2_rerank(q, corpus, idx, k, self_ids=self_ids)
+
+
+def knn_graph_brute(x: torch.Tensor, k: int, distance: str = "DistL2",
+                    block_rows: int = 1024, dtype: str = "float32",
+                    topk_recall: float = 0.0):
+    """Exact k nearest neighbours of every row of ``x`` (self excluded).
+    Returns ``(indices int32, dists f32)`` of shape (n, k), ascending."""
+    check_distance(distance)
+    _check_knobs(dtype, topk_recall)
+    n = x.shape[0]
+    if k >= n:
+        raise ValueError(f"k={k} must be < n={n}")
+    x = x.to(torch.float32)
+    x_sq = corpus_sqnorm(x)
+    kk = min(k + _RERANK_EXTRA, n)
+    br = panel_rows(n, block_rows)
+    idx_parts, dist_parts = [], []
+    for r0 in range(0, n, br):
+        r1 = min(r0 + br, n)
+        ids = torch.arange(r0, r1, device=x.device)
+        i, d = _block_topk(x[r0:r1], x, x_sq, k, kk, self_ids=ids)
+        idx_parts.append(i)
+        dist_parts.append(d)
+    return torch.cat(idx_parts), torch.cat(dist_parts)
+
+
+def knn_search_brute(queries: torch.Tensor, corpus: torch.Tensor, k: int,
+                     distance: str = "DistL2", block_rows: int = 1024,
+                     dtype: str = "float32", topk_recall: float = 0.0):
+    """k nearest corpus points for each query (no self-exclusion).
+    Replaces ``hnsw.search`` (reference src/embedder.rs:527-554)."""
+    check_distance(distance)
+    _check_knobs(dtype, topk_recall)
+    n = corpus.shape[0]
+    if k > n:
+        raise ValueError("k larger than corpus")
+    queries = queries.to(torch.float32)
+    corpus = corpus.to(torch.float32)
+    x_sq = corpus_sqnorm(corpus)
+    kk = min(k + _RERANK_EXTRA, n)
+    br = panel_rows(n, block_rows)
+    idx_parts, dist_parts = [], []
+    for r0 in range(0, queries.shape[0], br):
+        i, d = _block_topk(queries[r0:r0 + br], corpus, x_sq, k, kk)
+        idx_parts.append(i)
+        dist_parts.append(d)
+    return torch.cat(idx_parts), torch.cat(dist_parts)

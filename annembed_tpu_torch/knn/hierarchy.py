@@ -1,0 +1,100 @@
+"""Hierarchical two-level graph for coarse-to-fine embedding.
+
+Port of annembed_tpu/knn/hierarchy.py (reference
+src/fromhnsw/kgproj.rs:35): a uniform random subsample of fraction
+``sample_fraction`` plays the role of HNSW's upper layers, and every
+point is projected onto its nearest sampled point by one top-1 search
+(ops/top1.py), the CUDA kernel on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, Optional
+
+import torch
+
+from ..graph.kgraph import KGraph
+from ..ops.top1 import top1_l2
+from ..params import KnnParams
+from ..utils.profiling import PhaseTimer
+from .api import build_kgraph
+from .distances import check_distance
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class KGraphProjection:
+    """Small graph over a subsample + projection of all points onto it.
+
+    ``proj_small_idx[i]`` is the index *within the sample* of the point
+    nearest to i (identity for sampled points, kgproj.rs:254-267) and
+    ``proj_dist[i]`` its distance (0 for sampled points).  ``timings``
+    holds the wall seconds of the three builds."""
+
+    small_graph: KGraph
+    large_graph: KGraph
+    sample_ids: torch.Tensor      # (m,) int64 indices into [0, n)
+    proj_small_idx: torch.Tensor  # (n,) int64 indices into [0, m)
+    proj_dist: torch.Tensor       # (n,) float32
+    timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @property
+    def nb_small(self) -> int:
+        return self.sample_ids.shape[0]
+
+
+def draw_sample_ids(n: int, m: int, generator: torch.Generator) -> torch.Tensor:
+    """m distinct sorted row ids out of n, from ``generator``."""
+    return torch.sort(torch.randperm(n, generator=generator)[:m]).values
+
+
+def build_projection(x: torch.Tensor, knbn: int,
+                     sample_fraction: float = 0.05,
+                     distance: str = "DistL2",
+                     params: Optional[KnnParams] = None, seed: int = 0,
+                     sample_ids: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> KGraphProjection:
+    """Small graph, large graph and projection (kgproj.rs:59).
+
+    ``sample_ids`` (sorted, distinct) may be given; otherwise they are
+    drawn from ``generator`` (default: a CPU generator seeded with
+    ``seed``)."""
+    check_distance(distance)
+    x = x.to(torch.float32).contiguous()
+    n = x.shape[0]
+    m = max(knbn + 1, int(round(n * sample_fraction)))
+    if sample_ids is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        sample_ids = draw_sample_ids(n, m, generator)
+    sample_ids = sample_ids.to(device=x.device, dtype=torch.int64)
+    m = sample_ids.shape[0]
+    xs = x[sample_ids]
+    logger.info("hierarchy: %d sampled of %d (fraction %.3f)", m, n, m / n)
+
+    timer = PhaseTimer()
+    with timer.phase("small_graph") as sync:
+        small = build_kgraph(xs, knbn, distance=distance, params=params)
+        sync.append(small.dists)
+    with timer.phase("large_graph") as sync:
+        large = build_kgraph(x, knbn, distance=distance, params=params)
+        sync.append(large.dists)
+    with timer.phase("projection") as sync:
+        idx1, dist1 = top1_l2(x, xs)
+        # sampled points project to themselves at distance 0
+        in_sample_pos = torch.zeros(n, dtype=torch.int64, device=x.device)
+        in_sample_pos[sample_ids] = torch.arange(m, device=x.device)
+        is_sampled = torch.zeros(n, dtype=torch.bool, device=x.device)
+        is_sampled[sample_ids] = True
+        proj_small_idx = torch.where(is_sampled, in_sample_pos,
+                                     idx1.to(torch.int64))
+        proj_dist = torch.where(is_sampled, torch.zeros_like(dist1), dist1)
+        sync.append(proj_dist)
+    return KGraphProjection(small_graph=small, large_graph=large,
+                            sample_ids=sample_ids,
+                            proj_small_idx=proj_small_idx,
+                            proj_dist=proj_dist, timings=timer.timings)

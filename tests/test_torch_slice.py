@@ -1,0 +1,80 @@
+"""The hierarchical slice as a whole: ``embed(x, layer=1)`` in both
+packages on 600 points of 3 blobs, each with its own random draws.
+Held to: shape and finiteness, the large-step final CE within 5%
+relative of the JAX package's, cluster accuracy >= 0.85 in both (as
+tests/test_optim.py measures it), and the same info keys."""
+
+import numpy as np
+import pytest
+import torch
+
+import annembed_tpu as ja
+import annembed_tpu_torch as ta
+from annembed_tpu.params import EmbedderParams as JEP
+from annembed_tpu_torch.params import EmbedderParams as TEP
+
+KW = dict(dim=2, nbng=6, layer=1, hierarchy_fraction=0.2, scale=0.75,
+          batch=10, seed=0)
+
+
+def _blobs():
+    rng = np.random.default_rng(4664397)
+    centers = rng.normal(size=(3, 10)) * 10.0
+    x = np.concatenate([c + rng.normal(size=(200, 10)) for c in centers])
+    return x.astype(np.float32), np.repeat(np.arange(3), 200)
+
+
+def _accuracy(y, labels):
+    mus = np.stack([y[labels == i].mean(0) for i in range(3)])
+    d_to = np.linalg.norm(y[:, None] - mus[None], axis=-1)
+    return float((d_to.argmin(1) == labels).mean())
+
+
+def test_hierarchical_embed_matches_jax_statistically():
+    x, labels = _blobs()
+    yj, ij = ja.embed(x, params=JEP(grad_factor=2, hubness_weighting=True),
+                      **KW)
+    yt, it = ta.embed(x, params=TEP(grad_factor=2, hubness_weighting=True),
+                      device="cpu", **KW)
+    assert yt.shape == np.asarray(yj).shape == (600, 2)
+    assert np.isfinite(yt).all()
+    rel = abs(it["final_ce"] - ij["final_ce"]) / abs(ij["final_ce"])
+    assert rel <= 0.05, f"large-step final_ce {it['final_ce']} vs " \
+        f"{ij['final_ce']}: {rel:.3f} > 5% relative"
+    for name, y in (("jax", np.asarray(yj)), ("torch", yt)):
+        acc = _accuracy(y, labels)
+        assert acc >= 0.85, f"{name} cluster accuracy {acc} < 0.85"
+    assert set(ij) <= set(it), set(ij) - set(it)
+    assert set(it) - set(ij) == {"graph_build_phases"}
+    assert set(it["first_step"]) == set(ij["first_step"])
+    assert it["first_step"]["final_ce"] < it["first_step"]["initial_ce"]
+
+
+def test_one_step_embed_runs():
+    x, labels = _blobs()
+    y, info = ta.embed(x, dim=2, nbng=6, batch=5, device="cpu")
+    assert y.shape == (600, 2) and np.isfinite(y).all()
+    assert info["final_ce"] < info["initial_ce"]
+    assert _accuracy(y, labels) >= 0.85
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(with_quality=True), dict(cluster=5), dict(n_devices=2),
+    dict(graph_cache="g.npz"), dict(embed_cache="e.npy"),
+    dict(outfile="o.csv"), dict(distance="DistL1"),
+    dict(params=TEP(optimizer="sampling")),
+    dict(params=TEP(dense_gather_reuse=2)),
+    dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
+])
+def test_unsupported_options_raise(kwargs):
+    x, _ = _blobs()
+    with pytest.raises(NotImplementedError):
+        ta.embed(x, nbng=6, batch=2, device="cpu", **kwargs)
+
+
+def test_csv_path_and_missing_card_raise():
+    with pytest.raises(NotImplementedError):
+        ta.embed("data.csv", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            ta.embed(np.zeros((10, 3), np.float32), device="cuda")
