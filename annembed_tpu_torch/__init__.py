@@ -4,15 +4,19 @@ Same module layout and names as the JAX package, which stays the
 reference the port is tested against.  This package imports torch and
 never jax (nor ``annembed_tpu``, whose import pulls in jax).  Its one
 hand-written kernel, ``csrc/top1_l2.cu``, carries the hierarchical
-projection (``ops/top1.py``).
+projection (``ops/top1.py``).  Entry points: ``embed`` / ``dmap_embed``,
+``python -m annembed_tpu_torch.cli embed|dmapembed`` and the bench,
+``python -m annembed_tpu_torch.bench``.
 
-Public surface: embed, Embedder, DiffusionMaps, EmbedderParams,
-DiffusionParams, KnnParams, KGraph, NodeParams, to_proba_edges,
-build_kgraph, recall_at_k, build_projection, KGraphProjection.
+Public surface: embed, dmap_embed, quality_estimate, QualityEstimate,
+Embedder, DiffusionMaps, EmbedderParams, DiffusionParams, KnnParams,
+KGraph, NodeParams, to_proba_edges, build_kgraph, recall_at_k,
+build_projection, KGraphProjection.
 """
 
 from .params import (EmbedderParams, DiffusionParams, KnnParams, PROBA_MIN)
-from .api import embed
+from .api import dmap_embed, embed
+from .estimators.quality import QualityEstimate, quality_estimate
 from .graph.kgraph import KGraph
 from .graph.proba import to_proba_edges, NodeParams
 from .knn.api import build_kgraph, recall_at_k
@@ -23,8 +27,8 @@ from .spectral.diffmaps import DiffusionMaps
 __version__ = "0.1.0"
 
 __all__ = [
-    "embed", "Embedder", "DiffusionMaps", "EmbedderParams",
-    "DiffusionParams", "KnnParams", "PROBA_MIN", "KGraph", "NodeParams",
-    "to_proba_edges", "build_kgraph", "recall_at_k", "build_projection",
-    "KGraphProjection",
+    "embed", "dmap_embed", "quality_estimate", "QualityEstimate",
+    "Embedder", "DiffusionMaps", "EmbedderParams", "DiffusionParams",
+    "KnnParams", "PROBA_MIN", "KGraph", "NodeParams", "to_proba_edges",
+    "build_kgraph", "recall_at_k", "build_projection", "KGraphProjection",
 ]

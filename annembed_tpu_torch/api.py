@@ -1,24 +1,34 @@
-"""Top-level ``embed`` (port of annembed_tpu/api.py::embed, arrays only).
+"""Top-level ``embed`` and ``dmap_embed`` (port of annembed_tpu/api.py;
+reference src/python.rs:109 and :201).
 
-Same keyword surface as the JAX package for what the port supports, plus
-an explicit ``device``.  What it does not support yet raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+Same keyword surface as the JAX package, csv paths or arrays in, plus an
+explicit ``device``.  Every knob the port does not support yet raises
+``NotImplementedError`` naming its ROADMAP item, before any data is
+moved to the device or any graph is built.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .device import resolve_device
-from .knn.api import build_kgraph
+from .io.csv_io import (get_toembed_from_csv, write_csv_array2,
+                        write_csv_labeled_array2)
+from .knn.api import build_kgraph, check_brute_limit
+from .knn.brute import check_knobs
+from .knn.distances import check_distance
 from .knn.hierarchy import build_projection
-from .optim.embedder import Embedder
-from .params import EmbedderParams, KnnParams
+from .optim.embedder import Embedder, check_embedder_params
+from .params import DiffusionParams, EmbedderParams, KnnParams
+from .spectral.diffmaps import DiffusionMaps
+
+ArrayLike = Union[str, os.PathLike, np.ndarray]
 
 
 def _finalize_info(info: dict) -> dict:
@@ -36,16 +46,40 @@ def _finalize_info(info: dict) -> dict:
 
 def _refuse(**flags) -> None:
     roadmap = {"mesh": "A14", "n_devices": "A14", "graph_cache": "A12",
-               "embed_cache": "A12", "with_quality": "A6", "cluster": "A11",
-               "outfile": "A7"}
+               "embed_cache": "A12", "cluster": "A11"}
     for name, on in flags.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet "
                                       f"(ROADMAP {roadmap[name]})")
 
 
-def embed(csv, outfile: Optional[str] = None, dim: int = 2, batch: int = 20,
-          nbsample: int = 10, layer: int = 0,
+def _check_graph_options(distance: str, knn_params: KnnParams) -> None:
+    check_distance(distance)
+    check_knobs(knn_params.dtype, knn_params.topk_recall)
+
+
+def _load(data: ArrayLike, delim: str, subsample: float,
+          knn_params: KnnParams) -> np.ndarray:
+    """Host rows to embed; refuses a size the brute build cannot take."""
+    if isinstance(data, (str, bytes)) or hasattr(data, "__fspath__"):
+        x = get_toembed_from_csv(data, delimiter=delim, subsample=subsample)
+    else:
+        x = np.asarray(data, np.float32)
+    check_brute_limit(x.shape[0], knn_params)
+    return x
+
+
+def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32).to(dev)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
+          batch: int = 20, nbsample: int = 10, layer: int = 0,
           hierarchy_fraction: float = 0.05, scale: float = 1.0,
           quality_sampling: float = 1.0, distance: str = "DistL2",
           nbng: int = 10, knn_params: Optional[KnnParams] = None,
@@ -56,22 +90,23 @@ def embed(csv, outfile: Optional[str] = None, dim: int = 2, batch: int = 20,
           quality_nbng: int = 50, quality_radius_compat: int = 0,
           return_graph: bool = False, cluster: int = 0, n_devices: int = 0,
           mesh=None, device="cuda"):
-    """kNN graph + CE-optimized embedding of the rows of ``csv`` (an
-    (n, d) array), on ``device``; ``layer > 0`` runs the hierarchical
-    two-step embedding.  Returns (embedding (n, dim) np.ndarray, info).
+    """kNN graph + CE-optimized embedding of the rows of ``csv`` (a csv
+    path or an (n, d) array) on ``device``; ``layer > 0`` runs the
+    hierarchical two-step embedding.  Returns (embedding (n, dim)
+    np.ndarray, info).
 
-    ``info`` carries the JAX package's keys; with ``layer > 0`` it also
-    carries ``graph_build_phases`` (small graph, large graph, projection
+    ``with_quality`` adds the neighbourhood-conservation summary as
+    ``info["quality"]`` (embedded neighbourhood ``quality_nbng``, node
+    subsample ``quality_fraction``, second radius
+    ``quality_radius_compat``).  ``outfile`` receives the embedding at
+    %.5e; with ``with_quality`` also ``first_dist.csv`` and
+    ``continuity_ratio.csv`` next to it, rows paired with the evaluated
+    nodes.  ``info`` carries the JAX package's keys; with ``layer > 0``
+    also ``graph_build_phases`` (small graph, large graph, projection
     seconds)."""
-    if isinstance(csv, (str, bytes)) or hasattr(csv, "__fspath__"):
-        raise NotImplementedError("csv paths are not ported yet (ROADMAP "
-                                  "A7); pass an (n, d) array")
     _refuse(mesh=mesh is not None, n_devices=n_devices > 1,
-            graph_cache=bool(graph_cache), embed_cache=bool(embed_cache),
-            with_quality=with_quality, cluster=cluster > 0,
-            outfile=bool(outfile))
-    dev = resolve_device(device)
-    x = torch.as_tensor(np.asarray(csv, np.float32)).to(dev)
+            graph_cache=bool(graph_cache) or graph_cache_eager,
+            embed_cache=bool(embed_cache), cluster=cluster > 0)
     if params is None:
         params = EmbedderParams()
     # the CLI-surface kwargs always win; the caller's object is copied
@@ -81,6 +116,12 @@ def embed(csv, outfile: Optional[str] = None, dim: int = 2, batch: int = 20,
         hierarchy_layer=layer, seed=seed)
     if knn_params is None:
         knn_params = KnnParams(knbn=nbng, distance=distance)
+    check_embedder_params(params)
+    _check_graph_options(distance, knn_params)
+    x_host = _load(csv, delim, quality_sampling, knn_params)
+    dev = resolve_device(device)
+    x = _to_device(x_host, dev)
+    del x_host
 
     t0 = time.perf_counter()
     extra = {}
@@ -93,15 +134,82 @@ def embed(csv, outfile: Optional[str] = None, dim: int = 2, batch: int = 20,
         emb = Embedder.from_hkgraph(proj, params)
     else:
         g = build_kgraph(x, nbng, distance=distance, params=knn_params)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _sync(dev)
         graph_build_time = time.perf_counter() - t0
         emb = Embedder.new(g, params)
-    y = emb.embed().cpu().numpy()
+    y_dev = emb.embed()
+    q = None
+    if with_quality:
+        q = emb.get_quality_estimate_from_edge_length(
+            nbng=quality_nbng, sample_fraction=quality_fraction,
+            knn_params=knn_params,
+            radius_k_compat=quality_radius_compat or None)
+    y = y_dev.cpu().numpy()
     info = _finalize_info(emb.info)
     info.update(extra)
     info["graph_build_time"] = graph_build_time
     info["total_time"] = time.perf_counter() - t0
     if return_graph:
         info["kgraph"] = emb.get_kgraph()
+    if q is not None:
+        info["quality"] = q.summary()
+        if outfile:
+            # per-node dumps next to the embedding (reference
+            # embedder.rs:729-743); under quality sampling the stat rows
+            # follow q.sample_ids, paired with the same embedding rows
+            d = os.path.dirname(os.fspath(outfile)) or "."
+            y_rows = y if q.sample_ids is None else y[q.sample_ids]
+            write_csv_labeled_array2(os.path.join(d, "first_dist.csv"),
+                                     q.first_dist.cpu().numpy(), y_rows)
+            write_csv_labeled_array2(os.path.join(d, "continuity_ratio.csv"),
+                                     q.ratio_by_node.cpu().numpy(), y_rows)
+    if outfile:
+        write_csv_array2(outfile, y)
+    return y, info
+
+
+def dmap_embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
+               alfa: float = 1.0, beta: float = 0.0, time_param: float = 5.0,
+               distance: str = "DistL2", nbng: int = 16, layer: int = 0,
+               hierarchy_fraction: float = 0.05,
+               knn_params: Optional[KnnParams] = None,
+               quality_sampling: float = 1.0, delim: str = ",",
+               seed: int = 0, n_devices: int = 0, mesh=None,
+               svd_n_iter: int = 5, device="cuda"):
+    """Diffusion-maps-only embedding (reference python.rs:201,
+    bin/dmapembed.rs:390-432) on ``device``.  With layer > 0 only the
+    subsample graph is embedded (dmapembed.rs:415-422) and ``info``
+    carries its ``sample_ids``.  ``svd_n_iter`` = subspace iterations
+    of the spectral SVD (the reference's 5, graphlaplace.rs:115)."""
+    _refuse(mesh=mesh is not None, n_devices=n_devices > 1)
+    if knn_params is None:
+        knn_params = KnnParams(knbn=nbng, distance=distance)
+    _check_graph_options(distance, knn_params)
+    x_host = _load(csv, delim, quality_sampling, knn_params)
+    dev = resolve_device(device)
+    x = _to_device(x_host, dev)
+    n = x_host.shape[0]
+    del x_host
+    dm = DiffusionMaps(params=DiffusionParams(
+        asked_dim=dim, alfa=alfa, beta=beta, t=time_param, gnbn=nbng,
+        svd_n_iter=svd_n_iter))
+    t0 = time.perf_counter()
+    if layer > 0:
+        proj = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
+                                distance=distance, params=knn_params,
+                                seed=seed)
+        y = dm.embed_from_kgraph(proj.small_graph).cpu().numpy()
+        info = {"nb_embedded": int(proj.nb_small),
+                "sample_ids": proj.sample_ids.cpu().numpy()}
+    else:
+        g = build_kgraph(x, nbng, distance=distance, params=knn_params)
+        _sync(dev)
+        t_g = time.perf_counter() - t0
+        y = dm.embed_from_kgraph(g).cpu().numpy()
+        info = {"nb_embedded": int(n),
+                "graph_build_time": round(t_g, 1),
+                "dmap_time": round(time.perf_counter() - t0 - t_g, 1)}
+    info["total_time"] = time.perf_counter() - t0
+    if outfile:
+        write_csv_array2(outfile, y)
     return y, info

@@ -1,0 +1,222 @@
+"""Neighbourhood-conservation quality estimator.
+
+Port of annembed_tpu/estimators/quality.py (reference
+src/embedder.rs:620-753):
+
+  1. for every original edge (i, j), the embedded length |y_i - y_j|;
+  2. each evaluated node's embedded radius: the distance to its
+     ``radius_k``-th embedded neighbour, from one exact search of the
+     embedded cloud (``knn_search_brute`` with k + 1 columns, self
+     included, so column ``radius_k`` is the radius_k-th neighbour);
+  3. per node, how many original neighbours fall inside that radius,
+     and the quantiles of edge_length / radius.
+
+The one exact search stands in for both of the JAX package's radius
+routes: its certified grid search (n > 50,000 at d = 2; ROADMAP A13),
+which tests/test_radius.py shows gives the brute search's distances, and
+the brute branch of its graph rebuild, whose self-excluded column
+radius_k - 1 is the same neighbour.  Above ``brute_force_limit`` at
+d != 2 the JAX package takes an approximate IVF rebuild, which is not
+ported (ROADMAP A8).
+
+``sample_fraction`` < 1 evaluates a node subsample drawn with numpy's
+``default_rng(seed).choice``, the JAX package's draw, so both packages
+evaluate the same nodes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import disable_tf32
+from ..graph.kgraph import KGraph
+from ..knn.brute import knn_search_brute
+from ..params import KnnParams
+
+logger = logging.getLogger(__name__)
+
+_QS = (0.05, 0.25, 0.5, 0.75, 0.85, 0.95)
+
+
+@dataclasses.dataclass
+class QualityEstimate:
+    nb_nodes: int
+    nbng_used: int          # neighbourhood size of the original graph
+    nbng_target: int        # neighbourhood size in embedded space
+    nb_without_match: int
+    #: mean conserved neighbours over nodes WITH >= 1 match (the
+    #: reference's semantics, embedder.rs:679-681)
+    mean_nb_matched: float
+    median_ratio: float
+    mean_ratio: float
+    radii_quantiles: Dict[str, float]
+    ratio_quantiles: Dict[str, float]
+    #: per-node mean ratio (continuity_ratio.csv); rows follow
+    #: ``sample_ids`` when sampling is active
+    ratio_by_node: torch.Tensor
+    #: per-node min embedded edge length (first_dist.csv)
+    first_dist: torch.Tensor
+    #: nodes actually evaluated (== nb_nodes without sampling)
+    nb_sampled: int = 0
+    #: exact fraction of evaluated nodes with zero conserved neighbours
+    frac_without_match: float = 0.0
+    #: evaluated node ids (None = all nodes in order)
+    sample_ids: Optional[np.ndarray] = None
+    #: mean conserved neighbours over ALL evaluated nodes
+    mean_nb_matched_marginal: float = 0.0
+    #: the headline counts at ``radius_k_compat`` from the same search
+    #: (keys: radius_k, nb_without_match, frac_without_match,
+    #: mean_nb_matched, mean_nb_matched_marginal, median_ratio)
+    compat: Optional[Dict[str, float]] = None
+
+    def summary(self) -> Dict[str, float]:
+        out = {
+            "nb_without_match": float(self.nb_without_match),
+            "mean_nb_matched": self.mean_nb_matched,
+            "mean_nb_matched_marginal": self.mean_nb_matched_marginal,
+            "median_ratio": self.median_ratio,
+            "mean_ratio": self.mean_ratio,
+            "frac_without_match": self.frac_without_match,
+        }
+        if self.nb_sampled != self.nb_nodes:
+            out["nb_sampled"] = float(self.nb_sampled)
+        if self.compat is not None:
+            out.update({f"compat_{k}": v for k, v in self.compat.items()})
+        out.update({f"radius_{k}": v for k, v in self.radii_quantiles.items()})
+        out.update({f"ratio_{k}": v for k, v in self.ratio_quantiles.items()})
+        return out
+
+
+def quantiles(x: torch.Tensor, qs: Sequence[float]) -> list:
+    """``jnp.quantile``'s linear interpolation over one sort of the
+    flattened ``x``.  ``torch.quantile`` refuses more than 2^24 elements;
+    the ratio array has n k of them (66M at 11M rows x 6)."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    pos = torch.tensor([q * (n - 1) for q in qs], dtype=torch.float64)
+    lo = pos.floor().to(torch.int64)
+    hi = pos.ceil().to(torch.int64)
+    w_hi = (pos - lo).to(s.device, torch.float32)
+    lo_v, hi_v = s[lo.to(s.device)], s[hi.to(s.device)]
+    return (lo_v * (1.0 - w_hi) + hi_v * w_hi).tolist()
+
+
+def edge_lengths_rows(y_rows: torch.Tensor, y: torch.Tensor,
+                      indices_rows: torch.Tensor) -> torch.Tensor:
+    """(m, k) embedded L2 lengths for a row subset: y_rows (m, d) are the
+    evaluated nodes' coordinates, indices_rows (m, k) their original
+    neighbour ids into the full cloud ``y``.  Summed over d, then sqrt,
+    as the radius search's exact rerank computes its distances, so a
+    node's own radius-defining neighbour compares equal."""
+    yj = y[indices_rows.to(torch.int64)]
+    return torch.sqrt(torch.square(y_rows[:, None, :] - yj).sum(-1)
+                      .clamp_min(0.0))
+
+
+def _radius_columns(y_rows, y, cols, brute_force_limit: int,
+                    full: bool) -> torch.Tensor:
+    """(len(cols), m) exact embedded distances at the given columns of a
+    self-including search of the rows against the whole cloud."""
+    n, d = y.shape
+    if full and d != 2 and n > brute_force_limit:
+        raise NotImplementedError(
+            f"the full-fraction quality radius at n={n} > brute_force_limit="
+            f"{brute_force_limit} and d={d} takes the IVF rebuild, not "
+            "ported yet (ROADMAP A8); pass sample_fraction < 1 or raise "
+            "KnnParams.brute_force_limit")
+    _, sd = knn_search_brute(y_rows, y, k=max(cols) + 1)
+    return sd[:, list(cols)].T.contiguous()
+
+
+def _counts(lengths: torch.Tensor, radius: torch.Tensor, n: int,
+            qs: Sequence[float] = (0.5,)):
+    """The headline counts of m evaluated nodes at one radius each:
+    conserved neighbours (int64; f32 loses integers past 2^24), nodes
+    with none (extrapolated to all n when sampled), their means and the
+    median ratio edge length / radius.  Also returns the (m, k) ratios
+    and their quantiles at ``qs``, which holds 0.5."""
+    m = lengths.shape[0]
+    matched = (lengths <= radius[:, None]).sum(1)
+    nb_without, nb_matched = int((matched == 0).sum()), int(matched.sum())
+    ratios = lengths / radius.clamp_min(1e-30)[:, None]
+    ratio_q = quantiles(ratios, qs)
+    return {
+        "nb_without_match": (nb_without if m == n
+                             else int(round(nb_without / m * n))),
+        "frac_without_match": nb_without / m,
+        "mean_nb_matched": nb_matched / max(m - nb_without, 1),
+        "mean_nb_matched_marginal": nb_matched / m,
+        "median_ratio": ratio_q[list(qs).index(0.5)],
+    }, ratios, ratio_q
+
+
+def quality_estimate(g: KGraph, y, nbng: int = 50,
+                     knn_params: KnnParams | None = None,
+                     sample_fraction: float = 1.0, seed: int = 0,
+                     radius_k: int | None = None,
+                     radius_k_compat: int | None = None) -> QualityEstimate:
+    """The neighbourhood-conservation summary of embedding ``y`` (n, d)
+    of graph ``g`` (a tensor, on the graph's device, or an array).
+
+    ``sample_fraction`` < 1 measures a random node subsample and
+    extrapolates ``nb_without_match`` to all n (``frac_without_match``
+    holds the sample's exact fraction).  ``radius_k`` (default nbng) is
+    the embedded neighbour whose distance is a node's radius;
+    ``radius_k_compat`` reports the headline counts at a second radius
+    from the same search (``QualityEstimate.compat``)."""
+    disable_tf32()
+    n, k = g.indices.shape
+    dev = g.indices.device
+    y = torch.as_tensor(y, dtype=torch.float32).to(dev)
+    if radius_k is None:
+        radius_k = nbng
+    cols = (radius_k, radius_k_compat) if radius_k_compat else (radius_k,)
+    limit = (knn_params.brute_force_limit if knn_params is not None
+             else KnnParams().brute_force_limit)
+
+    sample_ids = None
+    if sample_fraction < 1.0:
+        m = max(1, min(n, int(round(n * sample_fraction))))
+        rng = np.random.default_rng(seed)
+        sample_ids = np.sort(rng.choice(n, size=m, replace=False)
+                             ).astype(np.int32)
+        sub = torch.as_tensor(sample_ids, dtype=torch.int64, device=dev)
+        y_rows = y[sub]
+        lengths = edge_lengths_rows(y_rows, y, g.indices[sub])
+    else:
+        m = n
+        y_rows = y
+        lengths = edge_lengths_rows(y, y, g.indices)
+    radii = _radius_columns(y_rows, y, cols, limit, full=sample_ids is None)
+    radius = radii[0]
+
+    head, ratios, ratio_q = _counts(lengths, radius, n, _QS)
+    ratio_q = dict(zip((f"q{q:g}" for q in _QS), ratio_q))
+    radii_q = dict(zip((f"q{q:g}" for q in _QS), quantiles(radius, _QS)))
+    compat = None
+    if radius_k_compat:
+        compat = {"radius_k": float(radius_k_compat),
+                  **_counts(lengths, radii[1], n)[0]}
+        compat["nb_without_match"] = float(compat["nb_without_match"])
+    est = QualityEstimate(
+        nb_nodes=n, nbng_used=k, nbng_target=nbng,
+        nb_without_match=head["nb_without_match"],
+        mean_nb_matched=head["mean_nb_matched"],
+        median_ratio=head["median_ratio"], mean_ratio=float(ratios.mean()),
+        radii_quantiles=radii_q, ratio_quantiles=ratio_q,
+        ratio_by_node=ratios.mean(1), first_dist=lengths.min(1).values,
+        nb_sampled=m, frac_without_match=head["frac_without_match"],
+        sample_ids=sample_ids,
+        mean_nb_matched_marginal=head["mean_nb_matched_marginal"],
+        compat=compat)
+    logger.info(
+        "quality: nb_without_match=%d (frac %.4f of %d sampled) "
+        "mean_matched=%.3f median_ratio=%.3e mean_ratio=%.3e",
+        est.nb_without_match, est.frac_without_match, m,
+        est.mean_nb_matched, est.median_ratio, est.mean_ratio)
+    return est

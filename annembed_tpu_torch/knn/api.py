@@ -14,17 +14,21 @@ from ..params import KnnParams
 from .brute import knn_graph_brute, knn_search_brute
 
 
-def build_kgraph(x: torch.Tensor, knbn: int, distance: str = "DistL2",
-                 params: KnnParams | None = None) -> KGraph:
-    """Build the k-NN graph of ``x`` (reference bin/embed.rs:450)."""
-    if params is None:
-        params = KnnParams(knbn=knbn, distance=distance)
-    n = x.shape[0]
+def check_brute_limit(n: int, params: KnnParams) -> None:
+    """Refuse a graph of ``n`` rows that only the IVF build may take."""
     if n > params.brute_force_limit:
         raise NotImplementedError(
             f"n={n} > brute_force_limit={params.brute_force_limit} needs "
             "the IVF + NN-descent build, not ported yet (ROADMAP A8); "
             "raise KnnParams.brute_force_limit to build exactly")
+
+
+def build_kgraph(x: torch.Tensor, knbn: int, distance: str = "DistL2",
+                 params: KnnParams | None = None) -> KGraph:
+    """Build the k-NN graph of ``x`` (reference bin/embed.rs:450)."""
+    if params is None:
+        params = KnnParams(knbn=knbn, distance=distance)
+    check_brute_limit(x.shape[0], params)
     idx, dist = knn_graph_brute(x, knbn, distance=distance,
                                 block_rows=params.block_rows,
                                 dtype=params.dtype,

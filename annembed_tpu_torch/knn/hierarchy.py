@@ -3,8 +3,9 @@
 Port of annembed_tpu/knn/hierarchy.py (reference
 src/fromhnsw/kgproj.rs:35): a uniform random subsample of fraction
 ``sample_fraction`` plays the role of HNSW's upper layers, and every
-point is projected onto its nearest sampled point by one top-1 search
-(ops/top1.py), the CUDA kernel on the card.
+point is projected onto its nearest sampled point by one top-1 search:
+for DistL2 ``ops/top1.py`` (the CUDA kernel on the card), for the other
+metrics a k=1 brute search.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from ..ops.top1 import top1_l2
 from ..params import KnnParams
 from ..utils.profiling import PhaseTimer
 from .api import build_kgraph
-from .distances import check_distance
+from .brute import knn_search_brute
 
 logger = logging.getLogger(__name__)
 
@@ -63,7 +64,6 @@ def build_projection(x: torch.Tensor, knbn: int,
     ``sample_ids`` (sorted, distinct) may be given; otherwise they are
     drawn from ``generator`` (default: a CPU generator seeded with
     ``seed``)."""
-    check_distance(distance)
     x = x.to(torch.float32).contiguous()
     n = x.shape[0]
     m = max(knbn + 1, int(round(n * sample_fraction)))
@@ -84,7 +84,11 @@ def build_projection(x: torch.Tensor, knbn: int,
         large = build_kgraph(x, knbn, distance=distance, params=params)
         sync.append(large.dists)
     with timer.phase("projection") as sync:
-        idx1, dist1 = top1_l2(x, xs)
+        if distance == "DistL2":
+            idx1, dist1 = top1_l2(x, xs)
+        else:
+            idx1, dist1 = knn_search_brute(x, xs, k=1, distance=distance)
+            idx1, dist1 = idx1[:, 0], dist1[:, 0]
         # sampled points project to themselves at distance 0
         in_sample_pos = torch.zeros(n, dtype=torch.int64, device=x.device)
         in_sample_pos[sample_ids] = torch.arange(m, device=x.device)

@@ -31,7 +31,7 @@ from ..params import DiffusionParams, EmbedderParams
 from ..spectral.diffmaps import DiffusionMaps
 from ..utils.profiling import PhaseTimer
 from .ce import ce_value_dense
-from .dense import run_dense_optimization
+from .dense import check_dense_params, run_dense_optimization
 
 logger = logging.getLogger(__name__)
 
@@ -61,6 +61,18 @@ def median(x: torch.Tensor) -> torch.Tensor:
     return lo + (hi - lo) * (0.5 * (n - 1) - (n - 1) // 2)
 
 
+def check_embedder_params(params: EmbedderParams) -> None:
+    """Raise on the optimizer knobs the port does not support yet."""
+    if params.optimizer not in ("dense", "dense!"):
+        raise NotImplementedError(
+            f"optimizer {params.optimizer!r} is not ported yet "
+            "(ROADMAP A10: the sampling optimizer); use 'dense'")
+    if params.trace_dir:
+        raise NotImplementedError("trace_dir (device traces) is not "
+                                  "ported; profile with torch.profiler")
+    check_dense_params(params)
+
+
 @dataclasses.dataclass
 class Embedder:
     """One-shot or hierarchical embedding driver."""
@@ -86,13 +98,7 @@ class Embedder:
 
     def embed(self) -> torch.Tensor:
         """Dispatch (embedder.rs:183-191)."""
-        if self.params.optimizer not in ("dense", "dense!"):
-            raise NotImplementedError(
-                f"optimizer {self.params.optimizer!r} is not ported yet "
-                "(ROADMAP A10: the sampling optimizer); use 'dense'")
-        if self.params.trace_dir:
-            raise NotImplementedError("trace_dir (device traces) is not "
-                                      "ported; profile with torch.profiler")
+        check_embedder_params(self.params)
         if self.kgraph is not None:
             return self.one_step_embed()
         if self.hkgraph is not None:
@@ -188,9 +194,40 @@ class Embedder:
         self.info.update(info)
         return y
 
+    def get_embedded(self) -> Optional[torch.Tensor]:
+        return self.embedding
+
+    # rows are positional (no IndexSet remap), so reindexed == raw
+    # (reference embedder.rs:384-405)
+    def get_embedded_reindexed(self) -> Optional[torch.Tensor]:
+        return self.embedding
+
+    def get_initial_embedding(self) -> Optional[torch.Tensor]:
+        return self.initial_embedding
+
+    def get_embedded_by_nodeid(self, node: int) -> torch.Tensor:
+        """Row of the embedding (reference embedder.rs:421; node ids are
+        positional, so dataid == nodeid)."""
+        return self.embedding[node]
+
+    get_embedded_by_dataid = get_embedded_by_nodeid
+
     def get_kgraph(self) -> Optional[KGraph]:
         if self.kgraph is not None:
             return self.kgraph
         if self.hkgraph is not None:
             return self.hkgraph.large_graph
         return None
+
+    def get_quality_estimate_from_edge_length(self, nbng: int = 50,
+                                              sample_fraction: float = 1.0,
+                                              knn_params=None,
+                                              radius_k_compat=None):
+        """Neighbourhood conservation of the embedding against the
+        (large) kNN graph (reference embedder.rs:620)."""
+        from ..estimators.quality import quality_estimate
+        return quality_estimate(self.get_kgraph(), self.embedding,
+                                nbng=nbng, knn_params=knn_params,
+                                sample_fraction=sample_fraction,
+                                seed=self.params.seed,
+                                radius_k_compat=radius_k_compat)

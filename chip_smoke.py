@@ -3,14 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, checks
-it against its plain PyTorch twin at the hierarchical path's shapes, then
-drives ``annembed_tpu_torch.embed(x, layer=1)`` on 1,000,000 x 28
-Higgs-shaped rows (the reference's Higgs operating point: nbng 6,
-hierarchy fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness
-weighting) and checks what comes out.  Every failure raises, so the exit
-code is non-zero; with no CUDA device it exits 1 before printing any
-result.  The last line is one JSON object:
+Phases, each raising on failure (so the exit code is non-zero; with no
+CUDA device it exits 1 before printing any result):
+
+1. the device, its name and power limit;
+2. the CUDA kernel built from this checkout's sources;
+3. the kernel against its plain PyTorch twin at the hierarchical path's
+   shapes;
+4. ``embed(x, layer=1)`` on 1,000,000 x 28 Higgs-shaped rows (the
+   reference's Higgs operating point: nbng 6, hierarchy fraction 0.04,
+   scale 0.75, batch 40, grad_factor 5, hubness weighting);
+5. the bench workload (``annembed_tpu_torch.bench``: bench.py's one-step
+   path at 70,000 x 784, blobs and manifold rows), held to recall and to
+   the JAX package's conservation on the same workload;
+6. ``dmap_embed`` at 70,000 x 784;
+7. the CLI end to end (``embed --quality`` and ``dmapembed``) on a
+   20,000 x 784 csv;
+8. ``embed(distance=...)`` under the four non-L2 metrics on 20,000 x 784
+   rows, each graph held against the CPU search on a row sample.
+
+Before each path the kernel launch counts are set to 0 and read after it.
+The last line is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 """
@@ -18,9 +31,12 @@ result.  The last line is one JSON object:
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +56,19 @@ TIE_REL = 1e-5
 D2_REL = 1e-5
 MIN_RECALL = 0.99
 MIN_PURITY = 0.9
+ROOT = Path(__file__).resolve().parent
+
+# phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
+# workload with the same exact f32 graph (PERF.md section 6)
+JAX_NO_MATCH = 57_647
+JAX_MANIFOLD_MEAN_MATCHED = 5.175777602183751
+NO_MATCH_REL = 0.05
+MANIFOLD_MATCHED_ABS = 0.15
+BENCH_MIN_RECALL = 0.999
+# phase 7: the CLI's csv; phase 8: the non-L2 graphs
+CLI_ROWS = 20_000
+METRIC_ROWS, METRIC_D, METRIC_SAMPLE = 20_000, 784, 200
+METRIC_TIE_REL, METRIC_D_REL, METRIC_MIN_AGREE = 1e-5, 1e-4, 0.999
 
 
 def log(msg: str) -> None:
@@ -101,6 +130,161 @@ def check_kernel(name, q, c, reps):
                              f"{name}: {bad_idx} index mismatches, {bad_d2} "
                              "squared distances out of tolerance")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_bench():
+    """Phase 5: bench.py's one-step workload at 70,000 x 784."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    top1_l2.launches = 0
+    rec, t, y, tm = bench.run(bench.N, "cuda")
+    log(f"bench: phases (s) {json.dumps(t)}; manifold row {json.dumps(tm)}; "
+        f"top1_l2 launches={top1_l2.launches}")
+    log(json.dumps(rec))
+    y = y.cpu().numpy()
+    if y.shape != (bench.N, 2) or not np.isfinite(y).all():
+        raise AssertionError(f"bench embedding {y.shape} or non-finite")
+    if rec["recall"] < BENCH_MIN_RECALL:
+        raise AssertionError(f"bench recall {rec['recall']} < "
+                             f"{BENCH_MIN_RECALL}")
+    rel = abs(rec["no_match"] - JAX_NO_MATCH) / JAX_NO_MATCH
+    if rel > NO_MATCH_REL:
+        raise AssertionError(f"blobs no_match {rec['no_match']} vs JAX "
+                             f"{JAX_NO_MATCH}: {rel:.4f} > {NO_MATCH_REL}")
+    diff = abs(rec["manifold_mean_matched"] - JAX_MANIFOLD_MEAN_MATCHED)
+    if diff > MANIFOLD_MATCHED_ABS:
+        raise AssertionError(
+            f"manifold mean_matched {rec['manifold_mean_matched']} vs JAX "
+            f"{JAX_MANIFOLD_MEAN_MATCHED}: {diff:.4f} > "
+            f"{MANIFOLD_MATCHED_ABS}")
+    log(f"bench: no_match {rec['no_match']} vs JAX {JAX_NO_MATCH} "
+        f"({rel:.4f} relative); manifold mean_matched "
+        f"{rec['manifold_mean_matched']:.4f} vs JAX "
+        f"{JAX_MANIFOLD_MEAN_MATCHED:.4f} ({diff:.4f})")
+
+
+def phase_dmap(at):
+    """Phase 6: ``dmap_embed`` at 70,000 x 784, layer 0."""
+    from annembed_tpu_torch.bench import D, N
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    x = synthetic_blobs(N, D, 42)
+    top1_l2.launches = 0
+    t0 = time.perf_counter()
+    y, info = at.dmap_embed(x, dim=2, device="cuda")
+    wall = time.perf_counter() - t0
+    log(f"dmap_embed: n={N} d={D} wall={wall:.2f} s info={json.dumps(info)} "
+        f"top1_l2 launches={top1_l2.launches}")
+    if y.shape != (N, 2) or not np.isfinite(y).all():
+        raise AssertionError(f"dmap_embed output {y.shape} or non-finite")
+
+
+def _run_cli(args):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "annembed_tpu_torch.cli",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def _csv_rows(path: Path) -> int:
+    with open(path) as f:
+        return sum(1 for _ in f)
+
+
+def phase_cli():
+    """Phase 7: the CLI on a 20,000 x 784 csv with a '#' header."""
+    from annembed_tpu_torch.io.synthetic import synthetic_clustered_manifold
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        src = d / "manifold.csv"
+        np.savetxt(src, synthetic_clustered_manifold(CLI_ROWS, 784), fmt="%d",
+                   delimiter=",", header="synthetic clustered manifold")
+        out, wall = _run_cli(["embed", "--csv", str(src), "--nbng", "6",
+                              "--quality", "--outfile",
+                              str(d / "embedded.csv"), "--device", "cuda"])
+        log(f"cli embed: wall={wall:.2f} s {json.dumps(out)}")
+        if "quality" not in out or out["n"] != CLI_ROWS:
+            raise AssertionError(f"cli embed printed {sorted(out)}")
+        for name in ("embedded.csv", "first_dist.csv",
+                     "continuity_ratio.csv"):
+            rows = _csv_rows(d / name)
+            if rows != CLI_ROWS:
+                raise AssertionError(f"{name}: {rows} rows, not {CLI_ROWS}")
+        out, wall = _run_cli(["dmapembed", "--csv", str(src), "--outfile",
+                              str(d / "dmap.csv"), "--device", "cuda"])
+        log(f"cli dmapembed: wall={wall:.2f} s {json.dumps(out)}")
+        rows = _csv_rows(d / "dmap.csv")
+        if out["n"] != CLI_ROWS or rows != CLI_ROWS:
+            raise AssertionError(f"cli dmapembed: n={out['n']}, {rows} rows")
+
+
+def _clear_ties(dist: np.ndarray) -> np.ndarray:
+    """Columns whose distance is further than METRIC_TIE_REL (relative)
+    from both row neighbours' distances."""
+    scale = np.maximum(np.abs(dist), 1e-6)
+    gap = np.full(dist.shape, np.inf)
+    step = np.diff(dist, axis=1)
+    gap[:, 1:] = step / scale[:, 1:]
+    gap[:, :-1] = np.minimum(gap[:, :-1], step / scale[:, :-1])
+    return gap > METRIC_TIE_REL
+
+
+def phase_metrics(at):
+    """Phase 8: ``embed(distance=...)`` under each non-L2 metric on
+    20,000 x 784 blobs (the bench's width; probability rows for Jeffreys
+    and Jensen-Shannon), its graph held against the CPU search of the
+    same rows on a sample."""
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    from annembed_tpu_torch.knn.brute import knn_search_brute
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    x = synthetic_blobs(METRIC_ROWS, METRIC_D, 5).astype(np.float32)
+    prob = x / x.sum(1, keepdims=True)
+    sample = np.sort(np.random.default_rng(0).choice(
+        METRIC_ROWS, METRIC_SAMPLE, replace=False))
+    for metric in ("DistL1", "DistCosine", "DistJeffreys",
+                   "DistJensenShannon"):
+        data = prob if metric in ("DistJeffreys", "DistJensenShannon") else x
+        top1_l2.launches = 0
+        t0 = time.perf_counter()
+        y, info = at.embed(data, dim=2, nbng=KNN_K, distance=metric,
+                           return_graph=True, device="cuda")
+        wall = time.perf_counter() - t0
+        g = info["kgraph"]
+        gi = g.indices.cpu().numpy()[sample]
+        gd = g.dists.cpu().numpy()[sample]
+        host = torch.from_numpy(data)
+        t0 = time.perf_counter()
+        ci, cd = knn_search_brute(host[sample], host, KNN_K + 2,
+                                  distance=metric)
+        cpu_s = time.perf_counter() - t0
+        ci, cd = ci.numpy(), cd.numpy()
+        keep = ci != sample[:, None]
+        ci = np.stack([r[m][:KNN_K] for r, m in zip(ci, keep)])
+        cd = np.stack([r[m][:KNN_K] for r, m in zip(cd, keep)])
+        clear = _clear_ties(cd)
+        agree = float((gi[clear] == ci[clear]).mean())
+        d_err = np.abs(gd - cd) / np.maximum(np.abs(cd), 1e-6)
+        bad_d = int((np.abs(gd - cd) > METRIC_D_REL * np.abs(cd) + 1e-6)
+                    .sum())
+        log(f"metric {metric}: n={METRIC_ROWS} d={METRIC_D} k={KNN_K} "
+            f"graph {info['graph_build_time']:.2f} s, embed wall "
+            f"{wall:.2f} s; {METRIC_SAMPLE} rows vs CPU ({cpu_s:.2f} s): "
+            f"id agreement {agree:.5f} outside {int((~clear).sum())} "
+            f"near-tie columns, max rel dist err {float(d_err.max()):.3e}, "
+            f"{bad_d} dists out of tol; top1_l2 launches={top1_l2.launches}")
+        if y.shape != (METRIC_ROWS, 2) or not np.isfinite(y).all():
+            raise AssertionError(f"{metric}: embedding {y.shape} or "
+                                 "non-finite")
+        if agree < METRIC_MIN_AGREE or bad_d:
+            raise AssertionError(f"{metric}: CUDA graph disagrees with the "
+                                 "CPU search")
 
 
 def main() -> int:
@@ -190,6 +374,11 @@ def main() -> int:
         raise AssertionError(f"recall@{KNN_K} {recall} < {MIN_RECALL}")
     if purity < MIN_PURITY:
         raise AssertionError(f"label purity {purity} < {MIN_PURITY}")
+
+    phase_bench()
+    phase_dmap(at)
+    phase_cli()
+    phase_metrics(at)
 
     log(json.dumps({"kernels": [{
         "name": "top1_l2", "route": "cuda",

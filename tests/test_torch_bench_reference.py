@@ -1,0 +1,131 @@
+"""The JAX package's run of the port's bench workload, and the producer
+of chip_smoke.py's conservation constants.
+
+``jax_bench_record(n)`` runs bench.py::run_once's one-step workload
+(``annembed_tpu_torch.bench``) through annembed_tpu's functions on the
+CPU backend, with the exact f32 brute graph the port builds, then the
+bench's quality tail, and returns the record under the port bench's
+keys.  Regenerate chip_smoke.py's ``JAX_NO_MATCH`` (``no_match``) and
+``JAX_MANIFOLD_MEAN_MATCHED`` (``manifold_mean_matched``) with
+
+    python -m tests.test_torch_bench_reference --n 70000
+
+(about two minutes on a CPU; the fixtures are the port's numpy copies,
+bit-identical to the JAX package's).  The tests below run each row
+through both packages at a small n and hold the port's conservation to
+the JAX package's.
+"""
+
+import argparse
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from annembed_tpu_torch import bench as t_bench
+from annembed_tpu_torch.io.synthetic import (synthetic_blobs,
+                                             synthetic_clustered_manifold)
+from annembed_tpu_torch.knn.api import sampled_exact_recall
+
+SMALL_N = 1500
+
+
+def jax_run_once(x):
+    """annembed_tpu_torch.bench.run_once through annembed_tpu."""
+    from annembed_tpu.graph.kgraph import KGraph
+    from annembed_tpu.graph.proba import to_proba_edges
+    from annembed_tpu.knn.brute import knn_graph_brute
+    from annembed_tpu.optim.dense import run_dense_optimization
+    from annembed_tpu.optim.embedder import set_data_box
+    from annembed_tpu.params import DiffusionParams, EmbedderParams
+    from annembed_tpu.spectral.diffmaps import DiffusionMaps
+
+    idx, dist = knn_graph_brute(x, t_bench.KNBN,
+                                block_rows=t_bench.BLOCK_ROWS)
+    g = KGraph(indices=idx, dists=dist)
+    dm = DiffusionMaps(params=DiffusionParams(
+        asked_dim=t_bench.DIM, alfa=0.5, beta=-0.1, t=5.0, gnbn=12,
+        svd_n_iter=1))
+    init = set_data_box(dm.embed_from_kgraph(g), 10.0)
+    npar = to_proba_edges(g)
+    params = EmbedderParams(
+        asked_dim=t_bench.DIM,
+        nb_grad_batch=sum(b for b, _ in t_bench.SCHEDULE),
+        n_sub_schedule=t_bench.SCHEDULE, dense_neighbor_exclusion=False)
+    y, _ = run_dense_optimization(init, g, npar, params, n_sub=15)
+    return y, g
+
+
+def _conservation(g, y, prefix):
+    from annembed_tpu.estimators.quality import quality_estimate
+    q = quality_estimate(g, y, nbng=50, radius_k_compat=125)
+    out = {f"{prefix}no_match": int(q.nb_without_match),
+           f"{prefix}mean_matched": q.mean_nb_matched,
+           f"{prefix}median_ratio": q.median_ratio,
+           f"{prefix}compat_no_match": int(q.compat["nb_without_match"]),
+           f"{prefix}compat_mean_matched": q.compat["mean_nb_matched"]}
+    if not prefix:
+        out["compat_median_ratio"] = q.compat["median_ratio"]
+    return out
+
+
+#: the bench's two rows: record-key prefix -> fixture at n rows
+ROWS = {"": lambda n: synthetic_blobs(n, t_bench.D, 42),
+        "manifold_": lambda n: synthetic_clustered_manifold(n, t_bench.D)}
+
+
+def jax_bench_row(x, prefix):
+    """The JAX package's record of one bench row on rows ``x``."""
+    import jax.numpy as jnp
+    from annembed_tpu.knn.api import sampled_exact_recall
+
+    xj = jnp.asarray(x, jnp.float32)
+    y, g = jax_run_once(xj)
+    rec = _conservation(g, y, prefix)
+    if not prefix:
+        n = x.shape[0]
+        sub = np.linspace(0, n - 1, min(2000, n)).astype(np.int32)
+        rec["recall"] = sampled_exact_recall(xj, g, sample_ids=sub)
+    return rec
+
+
+def jax_bench_record(n):
+    """The JAX package's record of the bench workload at n rows."""
+    rec = {}
+    for prefix, make in ROWS.items():
+        rec.update(jax_bench_row(make(n), prefix))
+    return rec
+
+
+@pytest.mark.parametrize("prefix", list(ROWS), ids=["blobs", "manifold"])
+def test_port_bench_row_conserves_as_jax_does(prefix):
+    """Same rows, independent random draws: conservation agrees within
+    the spread of the chaotic sweep map at this size."""
+    x = ROWS[prefix](SMALL_N)
+    want = jax_bench_row(x, prefix)
+    y, g, _ = t_bench.run_once(torch.from_numpy(x).to(torch.float32))
+    got = t_bench.conservation(g, y, prefix)
+    assert set(want) - set(got) <= {"recall"}
+    assert y.shape == (SMALL_N, 2) and bool(torch.isfinite(y).all())
+    if not prefix:
+        sub = np.linspace(0, SMALL_N - 1, SMALL_N).astype(np.int32)
+        assert want["recall"] == 1.0
+        assert sampled_exact_recall(torch.from_numpy(x), g,
+                                    sample_ids=sub) == 1.0
+    assert abs(got[f"{prefix}no_match"]
+               - want[f"{prefix}no_match"]) <= 0.03 * SMALL_N
+    for key in ("mean_matched", "compat_mean_matched"):
+        assert abs(got[prefix + key] - want[prefix + key]) < 0.25, key
+
+
+if __name__ == "__main__":
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--n", type=int, default=t_bench.N)
+    n = p.parse_args().n
+    t0 = time.perf_counter()
+    rec = jax_bench_record(n)
+    print(json.dumps({"n": n, "seconds": time.perf_counter() - t0, **rec}))

@@ -58,23 +58,51 @@ def test_one_step_embed_runs():
     assert _accuracy(y, labels) >= 0.85
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(with_quality=True), dict(cluster=5), dict(n_devices=2),
-    dict(graph_cache="g.npz"), dict(embed_cache="e.npy"),
-    dict(outfile="o.csv"), dict(distance="DistL1"),
+UNSUPPORTED = [
+    dict(cluster=5), dict(n_devices=2), dict(graph_cache="g.npz"),
+    dict(embed_cache="e.npy"),
     dict(params=TEP(optimizer="sampling")),
     dict(params=TEP(dense_gather_reuse=2)),
     dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
-])
-def test_unsupported_options_raise(kwargs):
+    dict(knn_params=ta.KnnParams(knbn=6, topk_recall=0.99)),
+    dict(knn_params=ta.KnnParams(knbn=6, dtype="bfloat16")),
+    dict(params=TEP(dense_parallel_kicks=True)),
+    dict(params=TEP(dense_n_blocks=2)),
+]
+
+
+def _no_graph_build(monkeypatch):
+    """Make any kNN graph build fail the test."""
+    def built(*args, **kwargs):
+        raise AssertionError("a graph was built before the refusal")
+    for mod in (ta.api, ta.knn.hierarchy):
+        monkeypatch.setattr(mod, "build_kgraph", built)
+    monkeypatch.setattr(ta.knn.api, "knn_graph_brute", built)
+
+
+@pytest.mark.parametrize("kwargs", UNSUPPORTED)
+def test_unsupported_options_raise(kwargs, monkeypatch):
     x, _ = _blobs()
+    _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
         ta.embed(x, nbng=6, batch=2, device="cpu", **kwargs)
 
 
-def test_csv_path_and_missing_card_raise():
+@pytest.mark.parametrize("kwargs", [
+    dict(n_devices=2),
+    dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
+    dict(knn_params=ta.KnnParams(knbn=6, dtype="bfloat16")),
+])
+def test_dmap_embed_refuses_before_graph_build(kwargs, monkeypatch):
+    x, _ = _blobs()
+    _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
-        ta.embed("data.csv", device="cpu")
+        ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
+
+
+def test_csv_path_and_missing_card_raise(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        ta.embed(tmp_path / "missing.csv", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ta.embed(np.zeros((10, 3), np.float32), device="cuda")
