@@ -61,34 +61,42 @@ def top1_l2_reference(queries: torch.Tensor, corpus: torch.Tensor):
 def _kernel():
     lib = load_library("top1_l2")
     fn = lib.top1_l2_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    scratch = lib.top1_l2_scratch_floats
+    scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
 
 
 def top1_l2(queries: torch.Tensor, corpus: torch.Tensor):
     """Nearest corpus row for each query: (idx (nq,) int32, dist (nq,)).
 
-    CUDA tensors launch the CUDA kernel (a failed build or launch
-    raises); CPU tensors run ``top1_l2_reference``.  Each kernel launch
-    adds one to ``top1_l2.launches``."""
+    CUDA tensors launch the CUDA kernel (3xTF32 on the tensor cores; a
+    failed build or launch raises); CPU tensors run
+    ``top1_l2_reference``.  Each kernel launch adds one to
+    ``top1_l2.launches``."""
     _check(queries, corpus)
     if queries.device.type == "cpu":
         return top1_l2_reference(queries, corpus)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     nq, d = queries.shape
+    m = corpus.shape[0]
     idx = torch.empty(nq, dtype=torch.int32, device=queries.device)
     dist = torch.empty(nq, dtype=torch.float32, device=queries.device)
     if nq == 0:
         return idx, dist
-    launch = _kernel()
+    launch, scratch_floats = _kernel()
+    # the corpus split into TF32 hi / lo tiles, and its |c|^2
+    scratch = torch.empty(scratch_floats(m, d), dtype=torch.float32,
+                          device=queries.device)
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(queries.data_ptr(), corpus.data_ptr(), nq,
-                     corpus.shape[0], d, idx.data_ptr(), dist.data_ptr(),
+        err = launch(queries.data_ptr(), corpus.data_ptr(), nq, m, d,
+                     idx.data_ptr(), dist.data_ptr(), scratch.data_ptr(),
                      stream)
     if err != 0:
         raise RuntimeError(f"top1_l2 kernel launch failed: CUDA error {err}")

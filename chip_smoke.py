@@ -7,9 +7,13 @@ Phases, each raising on failure (so the exit code is non-zero; with no
 CUDA device it exits 1 before printing any result):
 
 1. the device, its name and power limit;
-2. the CUDA kernel built from this checkout's sources;
+2. the CUDA kernel built from this checkout's sources, with ptxas's
+   report (registers, shared memory, spills);
 3. the kernel against its plain PyTorch twin at the hierarchical path's
-   shapes;
+   shapes (1M x 40k x 28 on the Higgs rows, 70k x 3.5k x 784 on the
+   bench's rows, 11M x 440k x 28 checked on a query sample, a ragged
+   77 x 131 x 5), timed in turns with its yardstick (``torch.cdist`` +
+   ``min``) and beside its bound;
 4. ``embed(x, layer=1)`` on 1,000,000 x 28 Higgs-shaped rows (the
    reference's Higgs operating point: nbng 6, hierarchy fraction 0.04,
    scale 0.75, batch 40, grad_factor 5, hubness weighting);
@@ -57,6 +61,12 @@ D2_REL = 1e-5
 MIN_RECALL = 0.99
 MIN_PURITY = 0.9
 ROOT = Path(__file__).resolve().parent
+# phase 3: the kernel's other shapes on the path (bench rows at the
+# default hierarchy fraction; the reference's HIGGS projection, checked
+# on a query sample); the H100 SXM data sheet's peaks for its bounds
+BENCH_FRACTION = 0.05
+HIGGS_N, HIGGS_M, HIGGS_D, HIGGS_SAMPLE = 11_000_000, 440_000, 28, 65_536
+H100_BYTES_PER_S, H100_TF32_FLOPS, H100_F32_FLOPS = 3.35e12, 495e12, 67e12
 
 # phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
 # workload with the same exact f32 graph (PERF.md section 6)
@@ -106,30 +116,92 @@ def twin_top2(q, c):
     return torch.cat(vals), torch.cat(scale)
 
 
-def check_kernel(name, q, c, reps):
-    """Kernel against twin on the same CUDA tensors; returns the numbers."""
+def library_top1(q, c):
+    """The yardstick: ``torch.cdist`` (matmul form, full f32) and a row
+    ``min`` over the twin's query chunks.  Timed only; the port never
+    calls it."""
+    from annembed_tpu_torch.knn.distances import panel_rows
+    br = panel_rows(c.shape[0], q.shape[0])
+    for r0 in range(0, q.shape[0], br):
+        torch.cdist(q[r0:r0 + br], c,
+                    compute_mode="use_mm_for_euclid_dist").min(dim=1)
+
+
+def top1_bounds(nq, m, d):
+    """Least time (ms) an H100 SXM could take for the top-1 search: the
+    larger of its bytes (inputs read once, outputs written once) at
+    3.35 TB/s and its f32-accurate tensor-core work (three TF32 products,
+    6 nq m d flop) at 495 TFLOP/s; beside it the f32 CUDA-core bound
+    (2 nq m d flop at 67 TFLOP/s)."""
+    bytes_ms = 4.0 * ((nq + m) * d + 2 * nq) / H100_BYTES_PER_S * 1e3
+    tf32x3_ms = 6.0 * nq * m * d / H100_TF32_FLOPS * 1e3
+    f32_ms = 2.0 * nq * m * d / H100_F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, tf32x3_ms),
+                bound_by="operations" if tf32x3_ms >= bytes_ms else "bytes",
+                bound_f32_ms=max(bytes_ms, f32_ms))
+
+
+def check_kernel(name, q, c, reps, sample=None):
+    """Kernel against twin on the same CUDA tensors, then timed in turns
+    with its yardstick (library, kernel, kernel, library) and the twin.
+    With ``sample``, the twin is held against the kernel on that many
+    random query rows, and only the kernel is timed at full size."""
     from annembed_tpu_torch.ops.top1 import top1_l2, top1_l2_reference
+    nq, d = q.shape
+    m = c.shape[0]
     ki, kd = top1_l2(q, c)
     torch.cuda.synchronize()
-    ri, rd = top1_l2_reference(q, c)
-    top2, scale = twin_top2(q, c)
+    qc = q
+    if sample is not None:
+        gen = torch.Generator(device=q.device).manual_seed(SEED)
+        rows = torch.sort(torch.randperm(nq, generator=gen,
+                                         device=q.device)[:sample]).values
+        qc, ki, kd = q[rows].contiguous(), ki[rows], kd[rows]
+    ri, rd = top1_l2_reference(qc, c)
+    top2, scale = twin_top2(qc, c)
     gap = (top2[:, 1] - top2[:, 0]) > TIE_REL * scale
     bad_idx = int(((ki != ri) & gap).sum())
     d2_err = (kd.square() - rd.square()).abs()
     bad_d2 = int((d2_err > D2_REL * scale).sum())
     max_err = float((kd - rd).abs().max())
-    ms = cuda_ms(lambda: top1_l2(q, c), reps)
-    plain_ms = cuda_ms(lambda: top1_l2_reference(q, c), reps)
-    log(f"kernel {name}: nq={q.shape[0]} m={c.shape[0]} d={q.shape[1]} "
-        f"idx_mismatch_outside_ties={bad_idx} "
-        f"near_ties_skipped={int((~gap).sum())} d2_out_of_tol={bad_d2} "
-        f"max_rel_d2_err={float((d2_err / scale).max()):.3e} "
-        f"max_abs_dist_err={max_err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    max_rel = float((d2_err / scale).max())
+    near_ties = int((~gap).sum())
+    del ki, kd, ri, rd, top2, scale, d2_err, gap
+    kernel = lambda: top1_l2(q, c)  # noqa: E731
+    if sample is None:
+        lib_a = cuda_ms(lambda: library_top1(q, c), reps)
+        ms_a = cuda_ms(kernel, reps)
+        ms_b = cuda_ms(kernel, reps)
+        lib_b = cuda_ms(lambda: library_top1(q, c), reps)
+        ms, library_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+        turns = (f"turns lib {lib_a:.4f} kernel {ms_a:.4f} {ms_b:.4f} "
+                 f"lib {lib_b:.4f}")
+        twin_ms = cuda_ms(lambda: top1_l2_reference(q, c), reps)
+        sample_twin_ms = None
+    else:
+        ms, library_ms, twin_ms, turns = cuda_ms(kernel, reps), None, None, ""
+        sample_twin_ms = cuda_ms(lambda: top1_l2_reference(qc, c), 3)
+    b = top1_bounds(nq, m, d)
+    out = dict(shape=name, nq=nq, m=m, d=d, ms=ms, bound_ms=b["bound_ms"],
+               bound_by=b["bound_by"], bound_f32_ms=b["bound_f32_ms"],
+               share_of_bound=b["bound_ms"] / ms, library_ms=library_ms,
+               twin_ms=twin_ms, sample_twin_ms=sample_twin_ms,
+               checked_rows=qc.shape[0], idx_mismatch_outside_ties=bad_idx,
+               near_ties_skipped=near_ties, d2_out_of_tol=bad_d2,
+               max_rel_d2_err=max_rel, max_abs_err=max_err)
+    log(f"kernel {name}: nq={nq} m={m} d={d} checked_rows={qc.shape[0]} "
+        f"idx_mismatch_outside_ties={bad_idx} near_ties_skipped={near_ties} "
+        f"d2_out_of_tol={bad_d2} max_rel_d2_err={max_rel:.3e} "
+        f"max_abs_dist_err={max_err:.3e} ms={ms:.4f} "
+        f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']}; f32 CUDA cores "
+        f"{b['bound_f32_ms']:.4f}) share={b['bound_ms'] / ms:.4f} "
+        f"library_ms={library_ms} twin_ms={twin_ms} "
+        f"sample_twin_ms={sample_twin_ms} {turns}")
     if bad_idx or bad_d2:
         raise AssertionError(f"top1_l2 kernel disagrees with its twin at "
                              f"{name}: {bad_idx} index mismatches, {bad_d2} "
                              "squared distances out of tolerance")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    return out
 
 
 def phase_bench():
@@ -302,8 +374,10 @@ def main() -> int:
     log(smi)
 
     import annembed_tpu_torch as at
+    from annembed_tpu_torch import bench
     from annembed_tpu_torch.device import disable_tf32
     from annembed_tpu_torch.io.synthetic import (label_purity,
+                                                 synthetic_blobs,
                                                  synthetic_higgs, zscore)
     from annembed_tpu_torch.knn.api import sampled_exact_recall
     from annembed_tpu_torch.knn.hierarchy import draw_sample_ids
@@ -315,20 +389,35 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library("top1_l2")
     log(f"build: top1_l2.cu -> {_build.library_path('top1_l2')} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; ptxas:\n"
+        f"{_build.build_log('top1_l2').strip()}")
 
-    # phase 3: kernel against twin at the projection's shape and two more
+    # phase 3: kernel against twin and library at the path's shapes
+    t0 = time.perf_counter()
     x_np, labels = synthetic_higgs(N_ROWS, seed=SEED, return_labels=True)
     x = torch.from_numpy(zscore(x_np)).to(dev)
     m = max(KNN_K + 1, int(round(N_ROWS * FRACTION)))
     sample = draw_sample_ids(N_ROWS, m, torch.Generator().manual_seed(SEED))
     xs = x[sample.to(dev)].contiguous()
+    shapes = [check_kernel("slice", x, xs, reps=3)]
+    xb = torch.from_numpy(synthetic_blobs(bench.N, bench.D, 42)
+                          .astype(np.float32)).to(dev)
+    mb = max(KNN_K + 1, int(round(bench.N * BENCH_FRACTION)))
+    sb = draw_sample_ids(bench.N, mb, torch.Generator().manual_seed(SEED))
+    shapes.append(check_kernel("bench_rows", xb, xb[sb.to(dev)].contiguous(),
+                               reps=10))
+    del xb
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    qh = torch.randn(HIGGS_N, HIGGS_D, generator=gen, device=dev)
+    ch = torch.randn(HIGGS_M, HIGGS_D, generator=gen, device=dev)
+    shapes.append(check_kernel("higgs_11m", qh, ch, reps=1,
+                               sample=HIGGS_SAMPLE))
+    del qh, ch
     gen = torch.Generator().manual_seed(0)
-    slice_nums = check_kernel("slice", x, xs, reps=3)
-    check_kernel("mnist_width", torch.randn(4096, 784, generator=gen).to(dev),
-                 torch.randn(3000, 784, generator=gen).to(dev), reps=5)
-    check_kernel("ragged", torch.randn(77, 5, generator=gen).to(dev),
-                 torch.randn(131, 5, generator=gen).to(dev), reps=5)
+    shapes.append(check_kernel(
+        "ragged", torch.randn(77, 5, generator=gen).to(dev),
+        torch.randn(131, 5, generator=gen).to(dev), reps=5))
+    log(f"phase 3: {time.perf_counter() - t0:.2f} s")
 
     # phase 4: the main path, counting kernel launches from zero
     torch.cuda.reset_peak_memory_stats()
@@ -380,11 +469,20 @@ def main() -> int:
     phase_cli()
     phase_metrics(at)
 
+    # the top-level numbers are those of the main path's shape (phase 4's
+    # projection, 1M x 40k x 28); every shape of phase 3 is in "shapes"
+    main_shape = shapes[0]
     log(json.dumps({"kernels": [{
         "name": "top1_l2", "route": "cuda",
         "source": "annembed_tpu_torch/csrc/top1_l2.cu",
         "replaces": "annembed_tpu/ops/top1.py:24",
-        "launches": launches, **slice_nums}]}))
+        "launches": launches, "max_abs_err": main_shape["max_abs_err"],
+        "ms": main_shape["ms"], "plain_ms": main_shape["twin_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "shapes": [dict(s, launches=launches if s is main_shape else None)
+                   for s in shapes]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 search (indices equal, dists rtol 1e-5), the top-1 twin against the
 Pallas kernel in interpret mode (indices equal, dists rtol 1e-5), the
 hierarchical projection with the JAX sample ids injected, and the CUDA
-kernel against its twin on a card."""
+kernel against its twin on a card (indices outside near-ties, d^2 to
+1e-5 of |q|^2 + |c|^2)."""
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from annembed_tpu.ops.top1 import top1_l2 as j_top1
 from annembed_tpu_torch.knn.api import recall_at_k, sampled_exact_recall
 from annembed_tpu_torch.knn.brute import (knn_graph_brute as t_graph,
                                           knn_search_brute as t_search)
+from annembed_tpu_torch.knn.distances import corpus_sqnorm, l2_expansion
 from annembed_tpu_torch.knn.distances import l2_pair as t_pair
 from annembed_tpu_torch.knn.distances import l2_panel as t_panel
 from annembed_tpu_torch.knn.hierarchy import build_projection as t_projection
@@ -148,17 +150,77 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# chip_smoke.py's kernel tolerances: the expansion (|q|^2 + |c|^2) - 2 q.c
+# rounds at the scale of |q|^2 + |c|^2, and the kernel's 3xTF32 products
+# round in another order than the twin's f32 SGEMM, so indices must agree
+# wherever the twin's best and second-best d^2 are further apart than
+# TIE_REL of that scale, and squared distances to D2_REL of it.
+TIE_REL = 1e-5
+D2_REL = 1e-5
+
+
+def _assert_kernel_matches_twin(q, c, ki, kd):
+    ri, rd = top1_l2_reference(q, c)
+    c_sq = corpus_sqnorm(c)
+    vals, first = torch.topk(l2_expansion(q, c, c_sq), min(2, c.shape[0]),
+                             dim=1, largest=False)
+    scale = torch.square(q).sum(1) + c_sq[first[:, 0]]
+    if c.shape[0] > 1:
+        clear = (vals[:, 1] - vals[:, 0]) > TIE_REL * scale
+    else:
+        clear = torch.ones_like(scale, dtype=torch.bool)
+    bad_idx = int(((ki != ri) & clear).sum())
+    bad_d2 = int(((kd.square() - rd.square()).abs() > D2_REL * scale).sum())
+    assert bad_idx == 0, f"{bad_idx} index mismatches outside near-ties"
+    assert bad_d2 == 0, f"{bad_d2} squared distances beyond D2_REL"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nq,m,d", [(4096, 3000, 784), (77, 131, 5),
-                                    (5000, 2000, 28)])
-def test_top1_kernel_matches_twin_on_card(cuda_device, nq, m, d):
+@pytest.mark.parametrize("nq,m,d,shift", [
+    (4096, 3000, 784, 0.0), (77, 131, 5, 0.0), (5000, 2000, 28, 0.0),
+    (77, 131, 5, 10.0),                      # offset corpus
+    (300, 257, 1, 0.0), (1000, 129, 31, 0.0), (999, 1000, 33, 0.0),
+    (130, 1, 28, 0.0),                       # one corpus row
+    (1001, 3001, 784, 0.0),                  # every edge off its tile
+])
+def test_top1_kernel_matches_twin_on_card(cuda_device, nq, m, d, shift):
     g = torch.Generator().manual_seed(nq + m + d)
     q = torch.randn(nq, d, generator=g).to(cuda_device)
-    c = torch.randn(m, d, generator=g).to(cuda_device)
+    c = (torch.randn(m, d, generator=g) + shift).to(cuda_device)
     before = top1_l2.launches
     ki, kd = top1_l2(q, c)
     torch.cuda.synchronize()
     assert top1_l2.launches == before + 1
-    ri, rd = top1_l2_reference(q, c)
-    assert torch.equal(ki, ri), "kernel and twin indices must be equal"
-    torch.testing.assert_close(kd, rd, rtol=1e-5, atol=1e-6)
+    _assert_kernel_matches_twin(q, c, ki, kd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [28, 784])
+def test_top1_kernel_self_queries_on_card(cuda_device, d):
+    """Queries that are corpus rows: d^2 ~ 0, possibly negative before
+    the clamp."""
+    g = torch.Generator().manual_seed(d)
+    c = torch.randn(1500, d, generator=g).to(cuda_device)
+    rows = torch.randint(0, 1500, (2000,), generator=g).to(cuda_device)
+    q = c[rows].contiguous()
+    ki, kd = top1_l2(q, c)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_twin(q, c, ki, kd)
+    assert torch.equal(ki, rows.to(torch.int32))
+    assert bool((kd >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [5, 28, 784])
+def test_top1_kernel_duplicates_go_to_lowest_index_on_card(cuda_device, d):
+    """The same corpus row at columns in other corpus tiles (tiles of
+    128 rows, a ring of 4) and at other lanes of one tile: the lowest
+    column wins."""
+    g = torch.Generator().manual_seed(d)
+    c = torch.randn(2000, d, generator=g)
+    copies = [3, 6, 131, 3 + 4 * 128, 1999]
+    c[copies] = c[copies[-1]].clone()
+    q = c[copies[-1]] + 1e-3 * torch.randn(50, d, generator=g)
+    ki, _ = top1_l2(q.to(cuda_device), c.to(cuda_device))
+    torch.cuda.synchronize()
+    assert ki.tolist() == [3] * 50
