@@ -4,7 +4,8 @@ reference src/python.rs:109 and :201).
 Same keyword surface as the JAX package, csv paths or arrays in, plus an
 explicit ``device``.  Every knob the port does not support yet raises
 ``NotImplementedError`` naming its ROADMAP item, before any data is
-moved to the device or any graph is built.
+moved to the device or any graph is built.  Graphs above
+``KnnParams.brute_force_limit`` rows take the IVF + NN-descent build.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from .device import resolve_device
 from .io.csv_io import (get_toembed_from_csv, write_csv_array2,
                         write_csv_labeled_array2)
-from .knn.api import build_kgraph, check_brute_limit
+from .knn.api import build_kgraph
 from .knn.brute import check_knobs
 from .knn.distances import check_distance
 from .knn.hierarchy import build_projection
@@ -56,16 +57,25 @@ def _refuse(**flags) -> None:
 def _check_graph_options(distance: str, knn_params: KnnParams) -> None:
     check_distance(distance)
     check_knobs(knn_params.dtype, knn_params.topk_recall)
+    if knn_params.quantizer not in ("kmeans", "grid"):
+        raise ValueError(f"unknown quantizer {knn_params.quantizer!r}")
+    if knn_params.ivf_layout not in ("sorted", "gathered"):
+        raise ValueError(f"unknown IVF layout {knn_params.ivf_layout!r}")
 
 
 def _load(data: ArrayLike, delim: str, subsample: float,
           knn_params: KnnParams) -> np.ndarray:
-    """Host rows to embed; refuses a size the brute build cannot take."""
+    """Host rows to embed; refuses rows the chosen quantizer cannot take
+    (the grid serves d == 2 only) while they are still on the host."""
     if isinstance(data, (str, bytes)) or hasattr(data, "__fspath__"):
         x = get_toembed_from_csv(data, delimiter=delim, subsample=subsample)
     else:
         x = np.asarray(data, np.float32)
-    check_brute_limit(x.shape[0], knn_params)
+    n, d = x.shape
+    if (knn_params.quantizer == "grid" and d != 2
+            and n > knn_params.brute_force_limit):
+        raise ValueError(f"grid quantizer supports exactly d == 2 (got "
+                         f"d={d}); use quantizer='kmeans'")
     return x
 
 
@@ -103,7 +113,8 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     ``continuity_ratio.csv`` next to it, rows paired with the evaluated
     nodes.  ``info`` carries the JAX package's keys; with ``layer > 0``
     also ``graph_build_phases`` (small graph, large graph, projection
-    seconds)."""
+    seconds, and the IVF build's phases as ``<graph>/<phase>``) and
+    ``projection_distance_quantiles``."""
     _refuse(mesh=mesh is not None, n_devices=n_devices > 1,
             graph_cache=bool(graph_cache) or graph_cache_eager,
             embed_cache=bool(embed_cache), cluster=cluster > 0)
@@ -131,6 +142,8 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
                                 seed=seed)
         graph_build_time = time.perf_counter() - t0
         extra["graph_build_phases"] = dict(proj.timings)
+        extra["projection_distance_quantiles"] = \
+            proj.projection_distance_quantiles()
         emb = Embedder.from_hkgraph(proj, params)
     else:
         g = build_kgraph(x, nbng, distance=distance, params=knn_params)

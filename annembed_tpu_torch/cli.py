@@ -6,8 +6,8 @@
 Same flags and the same printed JSON as the JAX package's CLI
 (reference src/bin/embed.rs:185-321, src/bin/dmapembed.rs:183-306), plus
 ``--device`` (default ``cuda``).  ``--nlist``, ``--nprobe`` and ``--rho``
-tune the IVF build above ``brute_force_limit``, which is not ported
-(ROADMAP A8).
+tune the IVF + NN-descent graph build that rows above
+``KnnParams.brute_force_limit`` take.
 """
 
 from __future__ import annotations

@@ -11,13 +11,13 @@ src/embedder.rs:620-753):
   3. per node, how many original neighbours fall inside that radius,
      and the quantiles of edge_length / radius.
 
-The one exact search stands in for both of the JAX package's radius
+The one exact search stands in for two of the JAX package's radius
 routes: its certified grid search (n > 50,000 at d = 2; ROADMAP A13),
 which tests/test_radius.py shows gives the brute search's distances, and
 the brute branch of its graph rebuild, whose self-excluded column
-radius_k - 1 is the same neighbour.  Above ``brute_force_limit`` at
-d != 2 the JAX package takes an approximate IVF rebuild, which is not
-ported (ROADMAP A8).
+radius_k - 1 is the same neighbour.  The full fraction above
+``brute_force_limit`` at d != 2 takes the third, as the JAX package
+does: an approximate IVF rebuild of the embedded cloud (``_ivf_radius``).
 
 ``sample_fraction`` < 1 evaluates a node subsample drawn with numpy's
 ``default_rng(seed).choice``, the JAX package's draw, so both packages
@@ -35,8 +35,10 @@ import torch
 
 from ..device import disable_tf32
 from ..graph.kgraph import KGraph
+from ..knn.api import build_kgraph
 from ..knn.brute import knn_search_brute
 from ..params import KnnParams
+from ..utils.stats import quantiles
 
 logger = logging.getLogger(__name__)
 
@@ -92,20 +94,6 @@ class QualityEstimate:
         return out
 
 
-def quantiles(x: torch.Tensor, qs: Sequence[float]) -> list:
-    """``jnp.quantile``'s linear interpolation over one sort of the
-    flattened ``x``.  ``torch.quantile`` refuses more than 2^24 elements;
-    the ratio array has n k of them (66M at 11M rows x 6)."""
-    s = torch.sort(x.reshape(-1)).values
-    n = s.numel()
-    pos = torch.tensor([q * (n - 1) for q in qs], dtype=torch.float64)
-    lo = pos.floor().to(torch.int64)
-    hi = pos.ceil().to(torch.int64)
-    w_hi = (pos - lo).to(s.device, torch.float32)
-    lo_v, hi_v = s[lo.to(s.device)], s[hi.to(s.device)]
-    return (lo_v * (1.0 - w_hi) + hi_v * w_hi).tolist()
-
-
 def edge_lengths_rows(y_rows: torch.Tensor, y: torch.Tensor,
                       indices_rows: torch.Tensor) -> torch.Tensor:
     """(m, k) embedded L2 lengths for a row subset: y_rows (m, d) are the
@@ -118,17 +106,44 @@ def edge_lengths_rows(y_rows: torch.Tensor, y: torch.Tensor,
                       .clamp_min(0.0))
 
 
-def _radius_columns(y_rows, y, cols, brute_force_limit: int,
+def _ivf_radius(y: torch.Tensor, cols: Sequence[int],
+                knn_params: Optional[KnnParams]) -> torch.Tensor:
+    """(len(cols), n) approximate embedded radii through the IVF graph
+    rebuild: the full-fraction route above ``brute_force_limit`` at
+    d != 2.  ``cols`` count neighbours with self included in column 0,
+    as ``_radius_columns`` does, so column c reads the self-excluded
+    graph's column c - 1.
+
+    NN-descent is skipped: at nbng ~ 50 its candidate set is (2 nbng)^2
+    per node, and the radius only shifts marginally with IVF-level
+    recall.  The caller's params carry the original-space tuning; the
+    strategy knobs that transfer are kept (brute_force_limit, nlist,
+    nprobe) and the embedded-space essentials forced: knbn, no
+    refinement, and float32 panels (a bf16 cross product corrupts
+    low-d candidate selection)."""
+    k_search = max(cols)
+    if knn_params is None:
+        knn_params = KnnParams(knbn=k_search, refine_rounds=0)
+    else:
+        knn_params = dataclasses.replace(knn_params, knbn=k_search,
+                                         refine_rounds=0, dtype="float32")
+    emb_graph = build_kgraph(y, k_search, distance="DistL2",
+                             params=knn_params)
+    # only the radius columns outlive the graph
+    return emb_graph.dists[:, [c - 1 for c in cols]].T.contiguous()
+
+
+def _radius_columns(y_rows, y, cols, knn_params: Optional[KnnParams],
                     full: bool) -> torch.Tensor:
-    """(len(cols), m) exact embedded distances at the given columns of a
-    self-including search of the rows against the whole cloud."""
+    """(len(cols), m) embedded distances at the given columns of a
+    self-including search of the rows against the whole cloud: exact,
+    except for the full fraction above ``brute_force_limit`` at d != 2
+    (``_ivf_radius``)."""
     n, d = y.shape
-    if full and d != 2 and n > brute_force_limit:
-        raise NotImplementedError(
-            f"the full-fraction quality radius at n={n} > brute_force_limit="
-            f"{brute_force_limit} and d={d} takes the IVF rebuild, not "
-            "ported yet (ROADMAP A8); pass sample_fraction < 1 or raise "
-            "KnnParams.brute_force_limit")
+    limit = (knn_params.brute_force_limit if knn_params is not None
+             else KnnParams().brute_force_limit)
+    if full and d != 2 and n > limit:
+        return _ivf_radius(y, cols, knn_params)
     _, sd = knn_search_brute(y_rows, y, k=max(cols) + 1)
     return sd[:, list(cols)].T.contiguous()
 
@@ -176,8 +191,6 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
     if radius_k is None:
         radius_k = nbng
     cols = (radius_k, radius_k_compat) if radius_k_compat else (radius_k,)
-    limit = (knn_params.brute_force_limit if knn_params is not None
-             else KnnParams().brute_force_limit)
 
     sample_ids = None
     if sample_fraction < 1.0:
@@ -192,7 +205,8 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
         m = n
         y_rows = y
         lengths = edge_lengths_rows(y, y, g.indices)
-    radii = _radius_columns(y_rows, y, cols, limit, full=sample_ids is None)
+    radii = _radius_columns(y_rows, y, cols, knn_params,
+                            full=sample_ids is None)
     radius = radii[0]
 
     head, ratios, ratio_q = _counts(lengths, radius, n, _QS)

@@ -1,7 +1,9 @@
-"""kNN graph construction front-end (port of annembed_tpu/knn/api.py).
+"""kNN graph construction front-end: brute force vs IVF dispatch (port
+of annembed_tpu/knn/api.py).
 
-Only the exact brute branch is ported; graphs above
-``KnnParams.brute_force_limit`` need IVF + NN-descent (ROADMAP A8).
+Up to ``KnnParams.brute_force_limit`` rows the graph is exact
+(knn/brute.py); above it, the IVF local join (knn/ivf.py) followed by
+NN-descent refinement (knn/nndescent.py).
 """
 
 from __future__ import annotations
@@ -11,37 +13,59 @@ import torch
 
 from ..graph.kgraph import KGraph
 from ..params import KnnParams
+from ..utils.profiling import PhaseTimer
 from .brute import knn_graph_brute, knn_search_brute
-
-
-def check_brute_limit(n: int, params: KnnParams) -> None:
-    """Refuse a graph of ``n`` rows that only the IVF build may take."""
-    if n > params.brute_force_limit:
-        raise NotImplementedError(
-            f"n={n} > brute_force_limit={params.brute_force_limit} needs "
-            "the IVF + NN-descent build, not ported yet (ROADMAP A8); "
-            "raise KnnParams.brute_force_limit to build exactly")
+from .ivf import knn_graph_ivf
+from .nndescent import nndescent_refine
 
 
 def build_kgraph(x: torch.Tensor, knbn: int, distance: str = "DistL2",
-                 params: KnnParams | None = None) -> KGraph:
-    """Build the k-NN graph of ``x`` (reference bin/embed.rs:450)."""
+                 params: KnnParams | None = None,
+                 timer: PhaseTimer | None = None) -> KGraph:
+    """Build the k-NN graph of ``x`` with the strategy fitting its size
+    (reference bin/embed.rs:450).  ``timer`` receives the wall seconds of
+    the IVF build's phases (quantize, join, NN-descent rounds, rerank)."""
     if params is None:
         params = KnnParams(knbn=knbn, distance=distance)
-    check_brute_limit(x.shape[0], params)
-    idx, dist = knn_graph_brute(x, knbn, distance=distance,
-                                block_rows=params.block_rows,
-                                dtype=params.dtype,
-                                topk_recall=params.topk_recall)
-    return KGraph(indices=idx, dists=dist)
+    if x.shape[0] <= params.brute_force_limit:
+        idx, dist = knn_graph_brute(x, knbn, distance=distance,
+                                    block_rows=params.block_rows,
+                                    dtype=params.dtype,
+                                    topk_recall=params.topk_recall)
+        return KGraph(indices=idx, dists=dist)
+    # enlarged build-k: construct and refine at build_k_factor * k, then
+    # truncate to k.  Wider lists make each NN-descent round propagate
+    # further (the candidate set is B(B(i))), so recall@k rises faster
+    # per round than refining at k itself.
+    kb = knbn
+    if params.refine_rounds > 0 and params.build_k_factor > 1.0:
+        kb = max(knbn + 1, int(round(knbn * params.build_k_factor)))
+    idx, dist = knn_graph_ivf(x, kb, distance=distance, nlist=params.nlist,
+                              nprobe=params.nprobe, dtype=params.dtype,
+                              topk_recall=params.topk_recall,
+                              quantizer=params.quantizer,
+                              layout=params.ivf_layout, timer=timer)
+    if params.refine_rounds > 0:
+        idx, dist = nndescent_refine(x, idx, dist,
+                                     n_rounds=params.refine_rounds,
+                                     distance=distance, dtype=params.dtype,
+                                     rho=params.nndescent_rho, timer=timer)
+    return KGraph(indices=idx[:, :knbn].contiguous(),
+                  dists=dist[:, :knbn].contiguous())
 
 
-def recall_at_k(approx_idx, exact_idx) -> float:
-    """Mean fraction of the exact k-NN present in the approximate rows
-    (duplicate ids in an approx row count once)."""
+def recall_at_k(approx_idx, exact_idx, row_chunk: int = 500_000) -> float:
+    """Mean fraction of the exact k-NN present in the approximate rows.
+    Duplicate ids in an approx row (the IVF under-filled fix-up
+    duplicates the last valid neighbour) count once: each exact
+    neighbour either is in the approx row or is not.  Rows go in chunks
+    so the (c, k, k) match tensor stays bounded at 11M rows."""
     a = torch.as_tensor(approx_idx)
     e = torch.as_tensor(exact_idx)
-    hits = (e[:, :, None] == a[:, None, :]).any(-1).sum().item()
+    hits = 0
+    for c0 in range(0, e.shape[0], row_chunk):
+        ac, ec = a[c0:c0 + row_chunk], e[c0:c0 + row_chunk]
+        hits += (ec[:, :, None] == ac[:, None, :]).any(-1).sum().item()
     return hits / float(e.numel())
 
 

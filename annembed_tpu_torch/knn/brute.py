@@ -29,15 +29,15 @@ _EXACT_PANEL_MAX_D = 3
 
 
 def check_knobs(dtype: str, topk_recall: float) -> None:
-    """Raise on the KnnParams panel knobs that have no port."""
+    """Raise on the KnnParams panel knobs that have no port, and on an
+    unknown panel dtype."""
     if topk_recall > 0.0:
         raise NotImplementedError(
             "topk_recall > 0 selects candidates with the TPU ApproxTopK "
             "reduction, which has no counterpart here; use 0 (exact)")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"panel dtype {dtype!r} is not ported (ROADMAP A8 brings the "
-            "bfloat16 IVF join panels); use float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown panel dtype {dtype!r}; valid: "
+                         "'float32', 'bfloat16'")
 
 
 def _sorted_by_value_then_index(vals: torch.Tensor, idx: torch.Tensor):
@@ -49,11 +49,14 @@ def _sorted_by_value_then_index(vals: torch.Tensor, idx: torch.Tensor):
     return torch.gather(vals, 1, pos), torch.gather(idx, 1, pos)
 
 
-def _topk_lowest_index(panel: torch.Tensor, k: int):
+def _topk_lowest_index(panel: torch.Tensor, k: int,
+                       order_inf_ties: bool = True):
     """The k smallest entries of each row, ties to the lower index.
     ``torch.topk`` breaks ties in no set order, so it selects k + 8
     candidates; a row whose k-th value is tied beyond them is re-selected
-    by a stable sort of the whole row."""
+    by a stable sort of the whole row.  With ``order_inf_ties`` off, a
+    row whose k-th value is inf keeps whatever inf entries were selected
+    (for callers that discard them)."""
     m = panel.shape[1]
     kk = min(k + _RERANK_EXTRA, m)
     vals, idx = torch.topk(panel, kk, dim=1, largest=False, sorted=True)
@@ -61,6 +64,8 @@ def _topk_lowest_index(panel: torch.Tensor, k: int):
     if kk < m:
         kth = vals[:, k - 1:k]
         short = (panel <= kth).sum(1) > (vals <= kth).sum(1)
+        if not order_inf_ties:
+            short &= torch.isfinite(kth[:, 0])
         rows = short.nonzero().squeeze(1)
         if rows.numel():
             v, i = torch.sort(panel[rows], dim=1, stable=True)
@@ -68,11 +73,12 @@ def _topk_lowest_index(panel: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def _l2_sq_panel(q, x, x_sq):
-    """Squared L2 panel: exact at low d, the expansion otherwise."""
+def _l2_sq_panel(q, x, x_sq, dtype="float32"):
+    """Squared L2 panel: exact at low d (whatever ``dtype``), the
+    expansion with its cross product in ``dtype`` otherwise."""
     d = q.shape[1]
     if d > _EXACT_PANEL_MAX_D:
-        return l2_panel_sq(q, x, x_sq)
+        return l2_panel_sq(q, x, x_sq, dtype)
     return torch.square(q[:, None, :] - x[None, :, :]).sum(-1)
 
 
@@ -92,12 +98,15 @@ def _exact_l2_rerank(q, x, cand_idx, k: int, self_ids=None):
     return idx.to(torch.int32), torch.sqrt(d2_s[:, :k].clamp_min(0.0))
 
 
-def _block_topk(q, corpus, x_sq, k: int, distance: str, self_ids=None):
+def _block_topk(q, corpus, x_sq, k: int, distance: str, self_ids=None,
+                dtype: str = "float32"):
     """One query-block panel + top-k selection (+ exact rerank for
-    DistL2) — the shared body of the graph build and the corpus search."""
+    DistL2) — the shared body of the graph build and the corpus search.
+    ``dtype`` is the operand type of a matmul panel's cross product; the
+    DistL2 rerank is f32 either way."""
     l2 = distance == "DistL2"
-    panel = (_l2_sq_panel(q, corpus, x_sq) if l2
-             else get_panel_fn(distance)(q, corpus, x_sq))
+    panel = (_l2_sq_panel(q, corpus, x_sq, dtype) if l2
+             else get_panel_fn(distance)(q, corpus, x_sq, dtype=dtype))
     if self_ids is not None:
         panel[torch.arange(q.shape[0], device=q.device), self_ids] = \
             float("inf")
@@ -131,7 +140,8 @@ def knn_graph_brute(x: torch.Tensor, k: int, distance: str = "DistL2",
     for r0 in range(0, n, br):
         r1 = min(r0 + br, n)
         ids = torch.arange(r0, r1, device=x.device)
-        i, d = _block_topk(x[r0:r1], x, x_sq, k, distance, self_ids=ids)
+        i, d = _block_topk(x[r0:r1], x, x_sq, k, distance, self_ids=ids,
+                           dtype=dtype)
         idx_parts.append(i)
         dist_parts.append(d)
     return torch.cat(idx_parts), torch.cat(dist_parts)
@@ -153,7 +163,8 @@ def knn_search_brute(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     br = panel_rows(n, block_rows)
     idx_parts, dist_parts = [], []
     for r0 in range(0, queries.shape[0], br):
-        i, d = _block_topk(queries[r0:r0 + br], corpus, x_sq, k, distance)
+        i, d = _block_topk(queries[r0:r0 + br], corpus, x_sq, k, distance,
+                           dtype=dtype)
         idx_parts.append(i)
         dist_parts.append(d)
     if not idx_parts:

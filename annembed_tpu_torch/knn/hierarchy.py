@@ -20,6 +20,7 @@ from ..graph.kgraph import KGraph
 from ..ops.top1 import top1_l2
 from ..params import KnnParams
 from ..utils.profiling import PhaseTimer
+from ..utils.stats import quantiles
 from .api import build_kgraph
 from .brute import knn_search_brute
 
@@ -33,7 +34,8 @@ class KGraphProjection:
     ``proj_small_idx[i]`` is the index *within the sample* of the point
     nearest to i (identity for sampled points, kgproj.rs:254-267) and
     ``proj_dist[i]`` its distance (0 for sampled points).  ``timings``
-    holds the wall seconds of the three builds."""
+    holds the wall seconds of the three builds and, for a graph above
+    ``brute_force_limit``, of its phases as ``<graph>/<phase>``."""
 
     small_graph: KGraph
     large_graph: KGraph
@@ -45,6 +47,15 @@ class KGraphProjection:
     @property
     def nb_small(self) -> int:
         return self.sample_ids.shape[0]
+
+    def projection_distance_quantiles(self) -> Dict[str, float]:
+        """Quantiles of the projection distance over all points
+        (reference get_projection_distance_quant, kgproj.rs:403), the
+        sampled ones included at their identity distance 0, as the
+        reference counts them."""
+        qs = (0.05, 0.5, 0.95, 0.99)
+        return {f"q{q:g}": v for q, v in
+                zip(qs, quantiles(self.proj_dist, qs))}
 
 
 def draw_sample_ids(n: int, m: int, generator: torch.Generator) -> torch.Tensor:
@@ -77,12 +88,16 @@ def build_projection(x: torch.Tensor, knbn: int,
     logger.info("hierarchy: %d sampled of %d (fraction %.3f)", m, n, m / n)
 
     timer = PhaseTimer()
-    with timer.phase("small_graph") as sync:
-        small = build_kgraph(xs, knbn, distance=distance, params=params)
-        sync.append(small.dists)
-    with timer.phase("large_graph") as sync:
-        large = build_kgraph(x, knbn, distance=distance, params=params)
-        sync.append(large.dists)
+    graphs = {}
+    for name, rows in (("small_graph", xs), ("large_graph", x)):
+        inner = PhaseTimer()
+        with timer.phase(name) as sync:
+            graphs[name] = build_kgraph(rows, knbn, distance=distance,
+                                        params=params, timer=inner)
+            sync.append(graphs[name].dists)
+        timer.timings.update({f"{name}/{phase}": s
+                              for phase, s in inner.timings.items()})
+    small, large = graphs["small_graph"], graphs["large_graph"]
     with timer.phase("projection") as sync:
         if distance == "DistL2":
             idx1, dist1 = top1_l2(x, xs)

@@ -277,13 +277,14 @@ class DiffusionParams:
 
 @dataclasses.dataclass
 class KnnParams:
-    """TPU-native kNN graph construction knobs.
+    """kNN graph construction knobs.
 
     Replaces the HNSW parameters of the reference CLI
     (src/bin/embed.rs:52-92: max_nb_conn, ef_construction, knbn,
-    scale_modification).  On TPU the graph is built with tiled
-    distance-matmul panels + top-k, optionally pruned with an IVF
-    (k-means) coarse quantizer for very large n.
+    scale_modification).  The graph is built with tiled distance panels
+    + top-k, exactly up to ``brute_force_limit`` rows and above it with
+    an IVF coarse quantizer, a cell-blocked local join and NN-descent
+    refinement.
     """
 
     #: Number of neighbours kept per node (reference CLI default knbn=10).
@@ -295,41 +296,36 @@ class KnnParams:
     block_rows: int = 1024
     #: Above this many points, switch from exact brute force to IVF search.
     brute_force_limit: int = 200_000
-    #: IVF: number of coarse centroids (0 = auto ~ sqrt(n)).
+    #: IVF: number of coarse centroids (0 = auto, 4 sqrt(n)).
     nlist: int = 0
     #: IVF: number of closest centroid cells probed per query.
-    #: (measured at 2M x 28: nprobe=32 + 3 NN-descent rounds gives
-    #: recall@6 ~0.92 in ~50 s total; see PERF.md)
+    #: (at 1M x 28 the defaults give recall@6 0.999 on an H100; at 11M x
+    #: 28, nprobe=24 with 4 rounds at rho 0.5 gives 0.983; see PERF.md)
     nprobe: int = 32
-    #: Matmul dtype for distance panels ("float32" or "bfloat16").
+    #: Operand dtype of the L2 / cosine panels' cross product ("float32"
+    #: or "bfloat16"; accumulated in f32, DistL2 results exact-reranked).
     dtype: str = "float32"
     #: NN-descent refinement rounds applied after IVF (0 = none).
     refine_rounds: int = 3
     #: Enlarged build-k: IVF + NN-descent run at build_k_factor * knbn
-    #: neighbours and the final graph truncates to knbn — wider lists
-    #: propagate further per NN-descent round (recall@6 at 2M:
-    #: 0.92 -> >=0.95 at comparable build time; see PERF.md).
+    #: neighbours and the final graph truncates to knbn: wider lists
+    #: propagate further per NN-descent round.
     build_k_factor: float = 2.0
-    #: > 0 selects top-k candidates with the TPU ApproxTopK reduction
-    #: at this per-row recall target instead of the (slow, sort-based)
-    #: exact top-k; exact rerank / NN-descent refinement recover the
-    #: small loss.  0 = exact.
+    #: > 0 selects top-k candidates with the TPU ApproxTopK reduction of
+    #: the JAX package; it has no counterpart here and is refused.
+    #: 0 = exact.
     topk_recall: float = 0.0
     #: NN-descent candidate sampling fraction (Dong's rho-sampling):
     #: each round joins over an independent per-node random subset of
     #: rho*(k+rc) of the symmetrized neighbourhood, cutting the
     #: dominant candidate-gather volume ~rho^2 per round.  1.0 = full
-    #: join; 0.4-0.6 with one extra round gives the same recall for
-    #: roughly half the build time at 11M (PERF.md round 3).
+    #: join.
     nndescent_rho: float = 1.0
     #: IVF join memory layout: "sorted" (corpus reordered by cell once;
-    #: queries/candidates are contiguous slices — removes the per-row
-    #: corpus gathers that bound the join) or "gathered" (id-table
-    #: formulation).  Bit-identical results (tests/test_ivf.py).
+    #: queries and candidates are ranges of positions) or "gathered"
+    #: (id tables).  Bit-identical results (tests/test_torch_ivf.py).
     ivf_layout: str = "sorted"
-    #: IVF coarse quantizer: "kmeans" (any d) or "grid" (d <= 3 only;
-    #: equal-mass grid cells + (2r+1)^d block probes — ~9 probes
-    #: replace ~24-32 nearest-centroid probes at equal recall on
-    #: low-dimensional clouds, e.g. the embedded 2-D cloud the quality
-    #: estimator re-indexes; no k-means fit needed).
+    #: IVF coarse quantizer: "kmeans" (any d) or "grid" (d == 2 only;
+    #: strip-balanced equal-count cells + ~13 overlap-mapped block
+    #: probes, e.g. for an embedded 2-D cloud; no k-means fit needed).
     quantizer: str = "kmeans"

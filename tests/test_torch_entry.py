@@ -165,6 +165,34 @@ def test_cli_refuses_unported_flags(tmp_path, flag):
         t_cli.main(["embed", "--csv", str(src), "--device", "cpu"] + flag)
 
 
+def test_cli_ivf_flags_reach_the_build(tmp_path, capsys, monkeypatch):
+    """``--nlist``, ``--nprobe`` and ``--rho`` tune the build above
+    ``brute_force_limit`` (lowered here: the CLI has no flag for it)."""
+    import dataclasses
+    src = tmp_path / "x.csv"
+    _write_csv(src, _strip(600, 6))
+    knn_params, seen = t_cli._knn_params, {}
+    monkeypatch.setattr(t_cli, "_knn_params", lambda args: dataclasses.replace(
+        knn_params(args), brute_force_limit=100))
+    ivf, refine = ta.knn.api.knn_graph_ivf, ta.knn.api.nndescent_refine
+
+    def spy_ivf(x, k, **kw):
+        seen.update(k=k, nlist=kw["nlist"], nprobe=kw["nprobe"])
+        return ivf(x, k, **kw)
+
+    def spy_refine(x, idx, dist, **kw):
+        seen.update(rho=kw["rho"], rounds=kw["n_rounds"])
+        return refine(x, idx, dist, **kw)
+    monkeypatch.setattr(ta.knn.api, "knn_graph_ivf", spy_ivf)
+    monkeypatch.setattr(ta.knn.api, "nndescent_refine", spy_refine)
+    out = _cli_json(t_cli.main, [
+        "embed", "--csv", str(src), "--nbng", "6", "--batch", "2",
+        "--nlist", "12", "--nprobe", "5", "--rho", "0.5",
+        "--outfile", str(tmp_path / "t.csv"), "--device", "cpu"], capsys)
+    assert out["n"] == 600
+    assert seen == dict(k=12, nlist=12, nprobe=5, rho=0.5, rounds=3)
+
+
 def test_bench_prints_the_bench_keys(capsys):
     assert t_bench.main(["--n", "2000", "--device", "cpu"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

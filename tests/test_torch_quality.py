@@ -96,11 +96,21 @@ def test_quality_matches_jax(n, d, frac, compat, nbng):
 
 
 def test_full_fraction_above_the_brute_limit_raises_at_d3():
+    """It raised until the IVF build was ported; now the d = 3 radius
+    above the limit comes from the IVF rebuild of the embedded cloud
+    (no refinement, f32 panels whatever the caller's dtype), which at
+    nprobe = nlist is the exact search."""
     y, idx, dists = _ring(300, 3, seed=1)
     g = TKGraph(indices=torch.from_numpy(idx), dists=torch.from_numpy(dists))
-    with pytest.raises(NotImplementedError):
-        t_quality(g, torch.from_numpy(y), nbng=5,
-                  knn_params=KnnParams(brute_force_limit=100))
+    exact = t_quality(g, torch.from_numpy(y), nbng=5)
+    q = t_quality(g, torch.from_numpy(y), nbng=5, radius_k_compat=9,
+                  knn_params=KnnParams(brute_force_limit=100, nlist=8,
+                                       nprobe=8, dtype="bfloat16"))
+    assert q.nb_sampled == 300 and q.compat["radius_k"] == 9.0
+    assert q.nb_without_match == exact.nb_without_match
+    np.testing.assert_allclose(list(q.radii_quantiles.values()),
+                               list(exact.radii_quantiles.values()),
+                               rtol=1e-5)
     # at d = 2 the exact search serves any n
     q = t_quality(g, torch.from_numpy(y[:, :2]), nbng=5,
                   knn_params=KnnParams(brute_force_limit=100))

@@ -2,15 +2,21 @@
 packages on 600 points of 3 blobs, each with its own random draws.
 Held to: shape and finiteness, the large-step final CE within 5%
 relative of the JAX package's, cluster accuracy >= 0.85 in both (as
-tests/test_optim.py measures it), and the same info keys."""
+tests/test_optim.py measures it), and the same info keys.  The same
+again with ``brute_force_limit`` lowered so both graphs take the IVF +
+NN-descent build, at grad_step 0.02 and with the JAX package's graph
+draws (sample ids, k-means initial rows) injected."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
+
 import annembed_tpu as ja
 import annembed_tpu_torch as ta
 from annembed_tpu.params import EmbedderParams as JEP
+from annembed_tpu.params import KnnParams as JKP
 from annembed_tpu_torch.params import EmbedderParams as TEP
 
 KW = dict(dim=2, nbng=6, layer=1, hierarchy_fraction=0.2, scale=0.75,
@@ -45,9 +51,63 @@ def test_hierarchical_embed_matches_jax_statistically():
         acc = _accuracy(y, labels)
         assert acc >= 0.85, f"{name} cluster accuracy {acc} < 0.85"
     assert set(ij) <= set(it), set(ij) - set(it)
-    assert set(it) - set(ij) == {"graph_build_phases"}
+    assert set(it) - set(ij) == {"graph_build_phases",
+                                 "projection_distance_quantiles"}
     assert set(it["first_step"]) == set(ij["first_step"])
     assert it["first_step"]["final_ce"] < it["first_step"]["initial_ce"]
+
+
+def _jax_choice(seed, n, m):
+    return torch.from_numpy(np.array(jax.random.choice(
+        jax.random.PRNGKey(seed), n, (m,), replace=False)))
+
+
+def test_hierarchical_embed_ivf_matches_jax(monkeypatch):
+    """Both graphs (120 and 600 rows) above a limit of 100: k-means, the
+    sorted join, three NN-descent rounds.  The graph draws are the JAX
+    package's; the optimizer's are each package's own, so the embedding
+    is held as in the test above."""
+    x, labels = _blobs()
+    kp = dict(knbn=6, brute_force_limit=100)
+    yj, ij = ja.embed(x, knn_params=JKP(**kp), return_graph=True,
+                      params=JEP(grad_factor=2, hubness_weighting=True,
+                                 grad_step=0.02), **KW)
+
+    monkeypatch.setattr(
+        ta.knn.hierarchy, "draw_sample_ids",
+        lambda n, m, generator: torch.sort(_jax_choice(KW["seed"], n, m))[0])
+    fit = ta.knn.ivf.kmeans_fit
+    ivf_rows = []
+
+    def fit_from_jax_rows(sub, nlist, **kw):
+        ivf_rows.append(sub.shape[0])
+        kw["init_ids"] = _jax_choice(kw["seed"], sub.shape[0], nlist)
+        return fit(sub, nlist, **kw)
+    monkeypatch.setattr(ta.knn.ivf, "kmeans_fit", fit_from_jax_rows)
+    yt, it = ta.embed(x, knn_params=ta.KnnParams(**kp), return_graph=True,
+                      params=TEP(grad_factor=2, hubness_weighting=True,
+                                 grad_step=0.02), device="cpu", **KW)
+    assert ivf_rows == [120, 600]
+    gj, gt = ij.pop("kgraph"), it.pop("kgraph")
+    same = gt.indices.numpy() == np.asarray(gj.indices)
+    assert same.mean() >= 0.99, same.mean()
+    np.testing.assert_allclose(gt.dists.numpy()[same],
+                               np.asarray(gj.dists)[same], rtol=1e-5)
+    assert yt.shape == np.asarray(yj).shape == (600, 2)
+    assert np.isfinite(yt).all()
+    rel = abs(it["final_ce"] - ij["final_ce"]) / abs(ij["final_ce"])
+    assert rel <= 0.05, f"large-step final_ce {it['final_ce']} vs " \
+        f"{ij['final_ce']}: {rel:.3f} > 5% relative"
+    for name, y in (("jax", np.asarray(yj)), ("torch", yt)):
+        acc = _accuracy(y, labels)
+        assert acc >= 0.85, f"{name} cluster accuracy {acc} < 0.85"
+    assert set(it) - set(ij) == {"graph_build_phases",
+                                 "projection_distance_quantiles"}
+    phases = set(it["graph_build_phases"])
+    assert {"small_graph", "large_graph", "projection"} < phases
+    assert {f"large_graph/{p}" for p in (
+        "ivf_quantize", "ivf_join", "nndescent_round_1", "nndescent_round_2",
+        "nndescent_round_3")} < phases
 
 
 def test_one_step_embed_runs():
@@ -77,12 +137,32 @@ def _no_graph_build(monkeypatch):
         raise AssertionError("a graph was built before the refusal")
     for mod in (ta.api, ta.knn.hierarchy):
         monkeypatch.setattr(mod, "build_kgraph", built)
-    monkeypatch.setattr(ta.knn.api, "knn_graph_brute", built)
+    for name in ("knn_graph_brute", "knn_graph_ivf"):
+        monkeypatch.setattr(ta.knn.api, name, built)
+
+
+def _now_runs(kwargs, monkeypatch) -> bool:
+    """The two cases that were refused until the IVF build and the
+    bfloat16 panels were ported now run: 600 rows above a limit of 100
+    never reach the brute build, and bfloat16 panels reach it."""
+    kp = kwargs.get("knn_params")
+    if kp is None or kp.topk_recall > 0:
+        return False
+    if kp.brute_force_limit < 600:
+        def brute(*args, **kw):
+            raise AssertionError("the brute build ran above its limit")
+        monkeypatch.setattr(ta.knn.api, "knn_graph_brute", brute)
+    return True
 
 
 @pytest.mark.parametrize("kwargs", UNSUPPORTED)
 def test_unsupported_options_raise(kwargs, monkeypatch):
-    x, _ = _blobs()
+    x, labels = _blobs()
+    if _now_runs(kwargs, monkeypatch):
+        y, info = ta.embed(x, nbng=6, batch=5, device="cpu", **kwargs)
+        assert y.shape == (600, 2) and np.isfinite(y).all()
+        assert _accuracy(y, labels) >= 0.85
+        return
     _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
         ta.embed(x, nbng=6, batch=2, device="cpu", **kwargs)
@@ -95,6 +175,11 @@ def test_unsupported_options_raise(kwargs, monkeypatch):
 ])
 def test_dmap_embed_refuses_before_graph_build(kwargs, monkeypatch):
     x, _ = _blobs()
+    if _now_runs(kwargs, monkeypatch):
+        y, info = ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
+        assert y.shape == (600, 2) and np.isfinite(y).all()
+        assert info["nb_embedded"] == 600
+        return
     _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
         ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
