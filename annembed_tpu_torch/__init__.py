@@ -11,11 +11,18 @@ projection (``ops/top1.py``).  Entry points: ``embed`` / ``dmap_embed``,
 Public surface: embed, dmap_embed, quality_estimate, QualityEstimate,
 Embedder, DiffusionMaps, EmbedderParams, DiffusionParams, KnnParams,
 KGraph, NodeParams, to_proba_edges, build_kgraph, recall_at_k,
-build_projection, KGraphProjection.
+build_projection, KGraphProjection, and the by-product estimators
+hdbscan, single_linkage, HdbscanResult, outlier_scores,
+intrinsic_dim_levina_bickel, intrinsic_dim_2nn, Hubness.
 """
 
 from .params import (EmbedderParams, DiffusionParams, KnnParams, PROBA_MIN)
 from .api import dmap_embed, embed
+from .estimators.dimension import (intrinsic_dim_2nn,
+                                   intrinsic_dim_levina_bickel)
+from .estimators.hdbscan import (HdbscanResult, hdbscan, outlier_scores,
+                                 single_linkage)
+from .estimators.hubness import Hubness
 from .estimators.quality import QualityEstimate, quality_estimate
 from .graph.kgraph import KGraph
 from .graph.proba import to_proba_edges, NodeParams
@@ -31,4 +38,6 @@ __all__ = [
     "Embedder", "DiffusionMaps", "EmbedderParams", "DiffusionParams",
     "KnnParams", "PROBA_MIN", "KGraph", "NodeParams", "to_proba_edges",
     "build_kgraph", "recall_at_k", "build_projection", "KGraphProjection",
+    "intrinsic_dim_levina_bickel", "intrinsic_dim_2nn", "Hubness",
+    "hdbscan", "single_linkage", "HdbscanResult", "outlier_scores",
 ]

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .estimators.hdbscan import hdbscan
 from .io.csv_io import (get_toembed_from_csv, write_csv_array2,
                         write_csv_labeled_array2)
 from .knn.api import build_kgraph
@@ -47,7 +48,7 @@ def _finalize_info(info: dict) -> dict:
 
 def _refuse(**flags) -> None:
     roadmap = {"mesh": "A14", "n_devices": "A14", "graph_cache": "A12",
-               "embed_cache": "A12", "cluster": "A11"}
+               "embed_cache": "A12"}
     for name, on in flags.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet "
@@ -105,6 +106,10 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     hierarchical two-step embedding.  Returns (embedding (n, dim)
     np.ndarray, info).
 
+    ``cluster`` > 0 runs HDBSCAN* on the kNN graph at that
+    ``min_cluster_size``: ``info["cluster"]`` holds n_clusters,
+    noise_fraction, labels, probabilities and the stages' seconds, and
+    ``clusters.csv`` (label, coordinates) goes next to ``outfile``.
     ``with_quality`` adds the neighbourhood-conservation summary as
     ``info["quality"]`` (embedded neighbourhood ``quality_nbng``, node
     subsample ``quality_fraction``, second radius
@@ -117,7 +122,9 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     ``projection_distance_quantiles``."""
     _refuse(mesh=mesh is not None, n_devices=n_devices > 1,
             graph_cache=bool(graph_cache) or graph_cache_eager,
-            embed_cache=bool(embed_cache), cluster=cluster > 0)
+            embed_cache=bool(embed_cache))
+    if cluster == 1:
+        raise ValueError("cluster is HDBSCAN*'s min_cluster_size: >= 2")
     if params is None:
         params = EmbedderParams()
     # the CLI-surface kwargs always win; the caller's object is copied
@@ -164,6 +171,19 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     info["total_time"] = time.perf_counter() - t0
     if return_graph:
         info["kgraph"] = emb.get_kgraph()
+    if cluster > 0:
+        res = hdbscan(emb.get_kgraph(), min_cluster_size=cluster)
+        info["cluster"] = {
+            "n_clusters": len(res.selected),
+            "noise_fraction": float((res.labels == -1).mean()),
+            "labels": res.labels,
+            "probabilities": res.probabilities,
+            "timings": res.timings,
+        }
+        if outfile:
+            d = os.path.dirname(os.fspath(outfile)) or "."
+            write_csv_labeled_array2(os.path.join(d, "clusters.csv"),
+                                     res.labels, y)
     if q is not None:
         info["quality"] = q.summary()
         if outfile:

@@ -7,7 +7,9 @@ Same flags and the same printed JSON as the JAX package's CLI
 (reference src/bin/embed.rs:185-321, src/bin/dmapembed.rs:183-306), plus
 ``--device`` (default ``cuda``).  ``--nlist``, ``--nprobe`` and ``--rho``
 tune the IVF + NN-descent graph build that rows above
-``KnnParams.brute_force_limit`` take.
+``KnnParams.brute_force_limit`` take.  ``embed --cluster MCS`` adds
+HDBSCAN* on the kNN graph, ``embed --stats`` the intrinsic dimension and
+hubness of a max(nbng, 20)-NN graph.
 """
 
 from __future__ import annotations
@@ -73,19 +75,19 @@ def main_embed(argv=None) -> int:
     p.add_argument("--quality-fraction", type=float, default=1.0,
                    help="query-node subsample for --quality (exact radii)")
     p.add_argument("--stats", action="store_true",
-                   help="intrinsic dimension + hubness statistics "
-                        "(not ported: ROADMAP A11)")
+                   help="intrinsic dimension + hubness statistics on a "
+                        "max(nbng, 20)-NN graph of the csv rows")
     p.add_argument("--graph-cache", default=None,
                    help="save/load the kNN graph (not ported: ROADMAP A12)")
     p.add_argument("--graph-cache-eager", action="store_true",
                    help="save the graph right after the build (A12)")
     p.add_argument("--cluster", type=int, default=0, metavar="MCS",
-                   help="HDBSCAN* on the kNN graph (not ported: A11)")
+                   help="run HDBSCAN* on the kNN graph with this "
+                        "min_cluster_size; writes clusters.csv next to "
+                        "the embedding")
     args = p.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING)
-    if args.stats:
-        raise NotImplementedError("--stats is not ported yet (ROADMAP A11)")
 
     y, info = embed(args.csv, outfile=args.outfile, dim=args.dim,
                     batch=args.batch, nbsample=args.nbsample,
@@ -103,8 +105,38 @@ def main_embed(argv=None) -> int:
     out = {"n": int(y.shape[0]), "dim": int(y.shape[1]),
            **{k: v for k, v in info.items()
               if isinstance(v, (int, float, dict))}}
+    if "cluster" in out:        # keep only json-safe scalars
+        out["cluster"] = {k: v for k, v in out["cluster"].items()
+                          if isinstance(v, (int, float))}
+    if args.stats:
+        out.update(_stats(args))
     print(json.dumps(out, default=float))
     return 0
+
+
+def _stats(args) -> dict:
+    """The JAX CLI's ``--stats`` keys: Levina-Bickel and 2NN intrinsic
+    dimension and hubness of a max(nbng, 20)-NN graph of the csv rows,
+    built with the CLI's kNN knobs on ``--device``."""
+    import torch
+
+    from .device import resolve_device
+    from .estimators.dimension import (intrinsic_dim_2nn,
+                                       intrinsic_dim_levina_bickel)
+    from .estimators.hubness import Hubness
+    from .io.csv_io import get_toembed_from_csv
+    from .knn.api import build_kgraph
+
+    x = get_toembed_from_csv(args.csv, delimiter=args.delim,
+                             subsample=args.sampling)
+    x = torch.from_numpy(x).to(resolve_device(args.device))
+    gs = build_kgraph(x, max(args.nbng, 20), distance=args.distance,
+                      params=_knn_params(args))
+    hub = Hubness.new(gs)
+    return {"intrinsic_dim": list(intrinsic_dim_levina_bickel(gs)),
+            "intrinsic_dim_2nn": intrinsic_dim_2nn(gs),
+            "hubness_skew": hub.get_standard3m(),
+            "hubness_hist": hub.get_hubness_histogram()}
 
 
 def main_dmapembed(argv=None) -> int:

@@ -9,8 +9,8 @@ Port of annembed_tpu/io/csv_io.py (reference src/tools/io.rs):
 
 The parser is the repository's multithreaded C++ loader
 (native/csv_loader.cpp) through ctypes when it can be had: a g++ build
-of the source into ``build/annembed_tpu_torch/``, keyed by a hash of
-the source and flags, so a stale or foreign binary is never loaded.
+of the source by ``utils/native.py``, keyed by a hash of the source and
+flags, so a stale or foreign binary is never loaded.
 Without a compiler the numpy parser runs; both keep the same rows,
 because the subsample decision hashes (seed, line byte offset)
 (``_keep_row``).
@@ -20,53 +20,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import logging
 import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from ..utils.native import load_library
+
 logger = logging.getLogger(__name__)
-
-_ROOT = Path(__file__).resolve().parents[2]
-_NATIVE_SRC = _ROOT / "native" / "csv_loader.cpp"
-_BUILD_DIR = _ROOT / "build" / "annembed_tpu_torch"
-_GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
-
-
-def _build_native() -> Optional[Path]:
-    """g++ build of the csv loader, keyed by a hash of source and flags;
-    None when no source or no compiler is at hand."""
-    gxx = shutil.which("g++")
-    if gxx is None or not _NATIVE_SRC.is_file():
-        return None
-    digest = hashlib.sha256(_NATIVE_SRC.read_bytes()
-                            + " ".join(_GXX_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"csv_loader-{digest[:16]}.so"
-    if not out.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([gxx, *_GXX_FLAGS, str(_NATIVE_SRC), "-o",
-                               str(tmp)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            logger.warning("g++ failed building the csv loader:\n%s",
-                           proc.stderr)
-            return None
-        os.replace(tmp, out)
-    return out
 
 
 @functools.cache
 def _load_native() -> Optional[ctypes.CDLL]:
-    path = _build_native()
-    if path is None:
-        logger.info("native csv loader unavailable; numpy parser")
+    lib = load_library("csv_loader")
+    if lib is None:
         return None
-    lib = ctypes.CDLL(str(path))
     lib.annembed_csv_parse.restype = ctypes.c_void_p
     lib.annembed_csv_parse.argtypes = [
         ctypes.c_char_p, ctypes.c_char, ctypes.c_double, ctypes.c_uint64,

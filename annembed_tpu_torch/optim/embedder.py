@@ -3,7 +3,9 @@
 Port of annembed_tpu/optim/embedder.py (reference src/embedder.rs):
   * ``one_step_embed`` (embedder.rs:298): diffusion-maps initialization
     (t=5, gnbn=12, alfa=0.5, beta=-0.1), box normalization to size 10,
-    probability-edge calibration, dense CE optimization;
+    probability-edge calibration, CE optimization by the dense sweeps
+    (optim/dense.py) or, with ``optimizer="sampling"``, by the
+    reference's negative-sampling SGD (optim/ce.py);
   * ``h_embed`` (embedder.rs:194): embed the small (subsample) graph with
     grad_factor x the batches at grad_step 1, seed the full graph from
     the projected neighbours + clipped Gaussian jitter scaled by the
@@ -12,7 +14,8 @@ Port of annembed_tpu/optim/embedder.py (reference src/embedder.rs):
 Every random draw comes from a ``torch.Generator`` seeded from
 ``params.seed`` as the JAX package seeds its keys: relabel permutation
 and sweep offsets from ``seed``, the random init from ``seed + 17``, the
-jitter from ``seed + 23``, the SVD test matrix from 4664397.
+jitter from ``seed + 23``, the SVD test matrix from 4664397; the sampling
+optimizer's steps from ``seed`` on the embedding's device.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from ..knn.hierarchy import KGraphProjection
 from ..params import DiffusionParams, EmbedderParams
 from ..spectral.diffmaps import DiffusionMaps
 from ..utils.profiling import PhaseTimer
-from .ce import ce_value_dense
+from .ce import build_edge_set, ce_value_dense, run_entropy_optimization
 from .dense import check_dense_params, run_dense_optimization
 
 logger = logging.getLogger(__name__)
@@ -61,16 +64,26 @@ def median(x: torch.Tensor) -> torch.Tensor:
     return lo + (hi - lo) * (0.5 * (n - 1) - (n - 1) // 2)
 
 
+OPTIMIZERS = ("dense", "dense!", "sampling")
+
+
 def check_embedder_params(params: EmbedderParams) -> None:
-    """Raise on the optimizer knobs the port does not support yet."""
-    if params.optimizer not in ("dense", "dense!"):
-        raise NotImplementedError(
-            f"optimizer {params.optimizer!r} is not ported yet "
-            "(ROADMAP A10: the sampling optimizer); use 'dense'")
+    """Raise on an unknown optimizer name and on the optimizer knobs the
+    port does not support."""
+    if params.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {params.optimizer!r}; "
+                         f"expected one of {OPTIMIZERS}")
     if params.trace_dir:
         raise NotImplementedError("trace_dir (device traces) is not "
                                   "ported; profile with torch.profiler")
-    check_dense_params(params)
+    if _is_dense(params):
+        check_dense_params(params)
+
+
+def _is_dense(params: EmbedderParams) -> bool:
+    """"dense" (and its alias "dense!") picks the dense sweeps,
+    "sampling" the reference's negative-sampling SGD."""
+    return params.optimizer in ("dense", "dense!")
 
 
 @dataclasses.dataclass
@@ -174,21 +187,29 @@ class Embedder:
 
     def _entropy_optimize(self, g: KGraph, npar: NodeParams,
                           init: torch.Tensor) -> torch.Tensor:
-        """Dense branch of the JAX package's ``_entropy_optimize``."""
+        """The JAX package's ``_entropy_optimize``: the dense sweeps or
+        the sampling optimizer."""
         p = self.params
         t0 = time.perf_counter()
+        dense = _is_dense(p)
         logger.info("entropy optimization: starting (n=%d, k=%d, "
-                    "optimizer=dense, batches=%d)", g.nb_nodes,
-                    g.indices.shape[1], p.nb_grad_batch)
+                    "optimizer=%s, batches=%d)", g.nb_nodes,
+                    g.indices.shape[1], "dense" if dense else "sampling",
+                    p.nb_grad_batch)
         with self.timer.phase("entropy_optimization") as sync:
             hub = hubness_sampling_weights(g) if p.hubness_weighting else None
-            info = {"initial_ce": ce_value_dense(init, g, npar.probas,
-                                                 npar.scale, p.b)}
-            y, dinfo = run_dense_optimization(init, g, npar, p, n_sub=p.n_sub,
-                                              neg_weights=hub)
-            info.update(dinfo)
-            info["final_ce"] = ce_value_dense(y, g, npar.probas, npar.scale,
-                                              p.b)
+            if dense:
+                info = {"initial_ce": ce_value_dense(init, g, npar.probas,
+                                                     npar.scale, p.b)}
+                y, dinfo = run_dense_optimization(init, g, npar, p,
+                                                  n_sub=p.n_sub,
+                                                  neg_weights=hub)
+                info.update(dinfo)
+                info["final_ce"] = ce_value_dense(y, g, npar.probas,
+                                                  npar.scale, p.b)
+            else:
+                es = build_edge_set(g, npar, hubness_weights=hub)
+                y, info = run_entropy_optimization(init, es, p)
             sync.append(y)
         info["optimize_time"] = time.perf_counter() - t0
         self.info.update(info)

@@ -30,10 +30,19 @@ CUDA device it exits 1 before printing any result):
    path at 70,000 x 784, blobs and manifold rows), held to recall and to
    the JAX package's conservation on the same workload;
 6. ``dmap_embed`` at 70,000 x 784;
-7. the CLI end to end (``embed --quality`` and ``dmapembed``) on a
-   20,000 x 784 csv;
+7. the CLI end to end (``embed --quality --stats --cluster`` and
+   ``dmapembed``) on a 20,000 x 784 csv;
 8. ``embed(distance=...)`` under the four non-L2 metrics on 20,000 x 784
-   rows, each graph held against the CPU search on a row sample.
+   rows, each graph held against the CPU search on a row sample;
+9. the sampling path: ``embed(optimizer="sampling", cluster=1000)`` on the
+   bench's 70,000 x 784 blobs and manifold rows (the reference's negative-
+   sampling SGD, ~8,000 steps of 10,000 edges, then quality and HDBSCAN*),
+   held to the JAX package's conservation and cluster count on the same
+   call, with the alias and MST backends native;
+10. the estimators on the blobs rows: the ``--stats`` numbers of a 20-NN
+   graph held to the JAX package's, the Carre du champ covariances of a
+   few hundred points (symmetric, PSD) and ``psd_dist_pairs`` on 1,000
+   pairs.
 
 Before each path the kernel launch counts are set to 0 and read after it.
 The last line is one JSON object:
@@ -101,6 +110,28 @@ BENCH_MIN_RECALL = 0.999
 CLI_ROWS = 20_000
 METRIC_ROWS, METRIC_D, METRIC_SAMPLE = 20_000, 784, 200
 METRIC_TIE_REL, METRIC_D_REL, METRIC_MIN_AGREE = 1e-5, 1e-4, 0.999
+# phase 9: the JAX package on the CPU, embed(**bench.SAMPLING_EMBED) with
+# the sampling optimizer, the mean of seeds 0 / 1 / 2 (blobs no_match
+# 54,881 / 55,229 / 55,000; manifold mean_matched 4.8121 / 4.8610 /
+# 4.8242; 10 clusters, no noise, in every run; PERF.md section 6):
+#   python -m tests.test_torch_bench_reference --n 70000 \
+#       --optimizer sampling --seeds 0 1 2
+# The margins are 2.5-3x the larger of the seeds' spread (+-0.32%,
+# +-0.025) and the H100's over four runs (54,936-55,212, at most +0.32%;
+# 4.828-4.863, at most +0.031).  The dense optimizer's 57,451 (+4.4%)
+# and 5.18 (+0.35) on the same rows fail both.
+JAX_SAMPLING_NO_MATCH = 55_037
+JAX_SAMPLING_MANIFOLD_MEAN_MATCHED = 4.832463128579099
+JAX_SAMPLING_N_CLUSTERS = {"": 10, "manifold_": 10}
+SAMPLING_NO_MATCH_REL, SAMPLING_MATCHED_ABS = 0.01, 0.08
+SAMPLING_SEED, SAMPLING_BATCH, SAMPLING_STEPS_PER_BATCH = 0, 10_000, 420
+# phase 10: the same command's --stats record of the blobs rows' 20-NN
+# graph (Levina-Bickel mean and std, 2NN, hubness skew)
+JAX_STATS_INTRINSIC_DIM = (18.427152633666992, 5.303670406341553)
+JAX_STATS_INTRINSIC_DIM_2NN = 18.2176456451416
+JAX_STATS_HUBNESS_SKEW = 2.449930191040039
+STATS_REL = 1e-3
+CDC_POINTS, CDC_PAIRS, CDC_SYM_REL, CDC_PSD_REL = 256, 1000, 1e-5, 1e-5
 
 
 def log(msg: str) -> None:
@@ -308,6 +339,7 @@ def _csv_rows(path: Path) -> int:
 
 def phase_cli():
     """Phase 7: the CLI on a 20,000 x 784 csv with a '#' header."""
+    from annembed_tpu_torch.bench import MIN_CLUSTER_SIZE
     from annembed_tpu_torch.io.synthetic import synthetic_clustered_manifold
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -315,13 +347,16 @@ def phase_cli():
         np.savetxt(src, synthetic_clustered_manifold(CLI_ROWS, 784), fmt="%d",
                    delimiter=",", header="synthetic clustered manifold")
         out, wall = _run_cli(["embed", "--csv", str(src), "--nbng", "6",
-                              "--quality", "--outfile",
+                              "--quality", "--stats", "--cluster",
+                              str(MIN_CLUSTER_SIZE), "--outfile",
                               str(d / "embedded.csv"), "--device", "cuda"])
         log(f"cli embed: wall={wall:.2f} s {json.dumps(out)}")
-        if "quality" not in out or out["n"] != CLI_ROWS:
+        keys = {"quality", "cluster", "intrinsic_dim", "intrinsic_dim_2nn",
+                "hubness_skew", "hubness_hist"}
+        if not keys <= set(out) or out["n"] != CLI_ROWS:
             raise AssertionError(f"cli embed printed {sorted(out)}")
         for name in ("embedded.csv", "first_dist.csv",
-                     "continuity_ratio.csv"):
+                     "continuity_ratio.csv", "clusters.csv"):
             rows = _csv_rows(d / name)
             if rows != CLI_ROWS:
                 raise AssertionError(f"{name}: {rows} rows, not {CLI_ROWS}")
@@ -393,6 +428,154 @@ def phase_metrics(at):
         if agree < METRIC_MIN_AGREE or bad_d:
             raise AssertionError(f"{metric}: CUDA graph disagrees with the "
                                  "CPU search")
+
+
+def phase_sampling(at):
+    """Phase 9: ``embed(**bench.SAMPLING_EMBED)`` with the sampling
+    optimizer on the bench's two 70,000 x 784 rows.  Returns the blobs
+    rows on the card for phase 10."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.io.synthetic import (synthetic_blobs,
+                                                 synthetic_clustered_manifold)
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.utils.native import BACKENDS
+    rows = {"": synthetic_blobs(bench.N, bench.D, 42),
+            "manifold_": synthetic_clustered_manifold(bench.N, bench.D)}
+    for prefix, x in rows.items():
+        tag = f"sampling {prefix or 'blobs_'}row"
+        BACKENDS.clear()
+        top1_l2.launches = 0
+        t0 = time.perf_counter()
+        y, info = at.embed(
+            x, params=at.EmbedderParams(optimizer="sampling"),
+            seed=SAMPLING_SEED, device="cuda",
+            **bench.SAMPLING_EMBED)
+        wall = time.perf_counter() - t0
+        rec = bench.sampling_record(info, prefix)
+        steps = info["steps_per_batch"] * (bench.SAMPLING_EMBED["batch"] - 1)
+        c = info["cluster"]
+        log(f"{tag}: n={bench.N} wall={wall:.2f} s "
+            f"graph_build={info['graph_build_time']:.3f} s "
+            f"init={info['init_time']:.3f} s "
+            f"optimize={info['optimize_time']:.3f} s ({steps} steps of "
+            f"{info['batch_size']} edges, {info['steps_per_batch']} a batch, "
+            f"{steps / info['optimize_time']:.1f} steps/s) "
+            f"total={info['total_time']:.3f} s; ce {info['initial_ce']:.6g} "
+            f"-> {info['final_ce']:.6g}; hdbscan stages (s) "
+            f"{json.dumps(c['timings'])}; top1_l2 launches="
+            f"{top1_l2.launches}")
+        log(f"{tag}: {json.dumps(rec)}; quality {json.dumps(info['quality'])}")
+        log(f"{tag}: host backends {json.dumps(BACKENDS)}")
+        if BACKENDS != dict.fromkeys(("alias", "mst", "linkage", "condense"),
+                                     "native"):
+            raise AssertionError(f"{tag}: a native backend did not run")
+        if y.shape != (bench.N, 2) or not np.isfinite(y).all():
+            raise AssertionError(f"{tag}: embedding {y.shape} or non-finite")
+        if (info["batch_size"], info["steps_per_batch"]) != (
+                SAMPLING_BATCH, SAMPLING_STEPS_PER_BATCH):
+            raise AssertionError(f"{tag}: batch {info['batch_size']} x "
+                                 f"{info['steps_per_batch']} steps a batch")
+        want = JAX_SAMPLING_N_CLUSTERS[prefix]
+        if c["n_clusters"] != want:
+            raise AssertionError(f"{tag}: {c['n_clusters']} clusters, JAX "
+                                 f"{want}")
+        if prefix:
+            diff = abs(rec["manifold_mean_matched"]
+                       - JAX_SAMPLING_MANIFOLD_MEAN_MATCHED)
+            log(f"{tag}: mean_matched {rec['manifold_mean_matched']:.4f} vs "
+                f"JAX {JAX_SAMPLING_MANIFOLD_MEAN_MATCHED:.4f} ({diff:.4f}); "
+                f"{c['n_clusters']} clusters as JAX")
+            if diff > SAMPLING_MATCHED_ABS:
+                raise AssertionError(f"{tag}: mean_matched off by {diff:.4f} "
+                                     f"> {SAMPLING_MATCHED_ABS}")
+        else:
+            rel = abs(rec["no_match"] - JAX_SAMPLING_NO_MATCH) \
+                / JAX_SAMPLING_NO_MATCH
+            log(f"{tag}: no_match {rec['no_match']} vs JAX "
+                f"{JAX_SAMPLING_NO_MATCH} ({rel:.4f} relative); "
+                f"{c['n_clusters']} clusters as JAX")
+            if rel > SAMPLING_NO_MATCH_REL:
+                raise AssertionError(f"{tag}: no_match off by {rel:.4f} > "
+                                     f"{SAMPLING_NO_MATCH_REL}")
+    return torch.from_numpy(rows[""]).to("cuda", torch.float32)
+
+
+def phase_estimators(at, x):
+    """Phase 10: the ``--stats`` numbers of the blobs rows' 20-NN graph
+    against the JAX package's, and the Carre du champ operator."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.estimators.cdc import (CarreDuChamp, CdcMat,
+                                                   psd_dist_upper_bound)
+    t0 = time.perf_counter()
+    g = at.build_kgraph(x, bench.STATS_NBNG,
+                        params=at.KnnParams(knbn=bench.KNBN))
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hub = at.Hubness.new(g)
+    got = {"intrinsic_dim": list(at.intrinsic_dim_levina_bickel(g)),
+           "intrinsic_dim_2nn": at.intrinsic_dim_2nn(g),
+           "hubness_skew": hub.get_standard3m(),
+           "hubness_hist": hub.get_hubness_histogram()}
+    t_stats = time.perf_counter() - t0
+    want = {"intrinsic_dim_mean": JAX_STATS_INTRINSIC_DIM[0],
+            "intrinsic_dim_std": JAX_STATS_INTRINSIC_DIM[1],
+            "intrinsic_dim_2nn": JAX_STATS_INTRINSIC_DIM_2NN,
+            "hubness_skew": JAX_STATS_HUBNESS_SKEW}
+    have = {"intrinsic_dim_mean": got["intrinsic_dim"][0],
+            "intrinsic_dim_std": got["intrinsic_dim"][1],
+            "intrinsic_dim_2nn": got["intrinsic_dim_2nn"],
+            "hubness_skew": got["hubness_skew"]}
+    rel = {k: abs(have[k] - want[k]) / abs(want[k]) for k in want}
+    log(f"stats: {x.shape[0]} x {x.shape[1]}, {bench.STATS_NBNG}-NN graph "
+        f"{t_graph:.3f} s, estimators {t_stats:.3f} s: {json.dumps(got)}; "
+        f"relative to JAX {json.dumps(rel)}")
+    bad = {k: v for k, v in rel.items() if not v <= STATS_REL}
+    if bad:
+        raise AssertionError(f"stats off the JAX record by more than "
+                             f"{STATS_REL}: {bad}")
+    del g
+    gen = torch.Generator().manual_seed(SEED)
+    t0 = time.perf_counter()
+    cdc = CarreDuChamp(x)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    pts = torch.randperm(x.shape[0], generator=gen)[:CDC_POINTS]
+    t0 = time.perf_counter()
+    means, covs = cdc.get_cdc_batch(pts)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    a = torch.randint(0, x.shape[0], (CDC_PAIRS,), generator=gen)
+    b = torch.randint(0, x.shape[0], (CDC_PAIRS,), generator=gen)
+    t0 = time.perf_counter()
+    dist = cdc.psd_dist_pairs(a, b)
+    torch.cuda.synchronize()
+    t_pairs = time.perf_counter() - t0
+    scale = covs.abs().amax(dim=(1, 2))
+    asym = float(((covs - covs.transpose(1, 2)).abs().amax(dim=(1, 2))
+                  / scale).max())
+    eig = torch.linalg.eigvalsh(covs.double())
+    neg = float((-eig[:, 0] / eig[:, -1]).max())
+    # the pairwise form against the bound between materialized matrices
+    _, ca = cdc.get_cdc_batch(a[:8])
+    _, cb = cdc.get_cdc_batch(b[:8])
+    direct = torch.tensor([psd_dist_upper_bound(CdcMat(ca[i]), CdcMat(cb[i]))
+                           for i in range(8)])
+    pair_err = float(((dist[:8].cpu() - direct).abs()
+                      / direct.clamp_min(1e-6)).max())
+    log(f"cdc: {x.shape[0]} x {x.shape[1]}, kernel rows of at most "
+        f"{cdc._max_row}: operator {t_build:.3f} s, get_cdc_batch of "
+        f"{CDC_POINTS} points {t_batch:.3f} s, psd_dist_pairs of {CDC_PAIRS} "
+        f"pairs {t_pairs:.3f} s; max asymmetry {asym:.3e}, most negative "
+        f"eigenvalue / largest {neg:.3e}, pairwise vs materialized bound "
+        f"{pair_err:.3e}; trace q0.5 "
+        f"{float(covs.diagonal(dim1=1, dim2=2).sum(1).median()):.6g}, "
+        f"distance q0.5 {float(dist.median()):.6g}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (means, covs, dist))
+    if not finite or asym > CDC_SYM_REL or neg > CDC_PSD_REL \
+            or pair_err > 1e-3:
+        raise AssertionError("cdc: non-finite, asymmetric or not PSD, or "
+                             "the pairwise distance disagrees")
 
 
 def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
@@ -613,6 +796,12 @@ def main() -> int:
     phase_dmap(at)
     phase_cli()
     phase_metrics(at)
+    t0 = time.perf_counter()
+    blobs = phase_sampling(at)
+    log(f"phase 9 (sampling path): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_estimators(at, blobs)
+    log(f"phase 10 (estimators): {time.perf_counter() - t0:.2f} s")
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s")
 
     # the top-level numbers are those of the main path's shape (phase 4's

@@ -1,5 +1,5 @@
 """The JAX package's run of the port's bench workload, and the producer
-of chip_smoke.py's conservation constants.
+of chip_smoke.py's reference constants.
 
 ``jax_bench_record(n)`` runs bench.py::run_once's one-step workload
 (``annembed_tpu_torch.bench``) through annembed_tpu's functions on the
@@ -11,9 +11,18 @@ keys.  Regenerate chip_smoke.py's ``JAX_NO_MATCH`` (``no_match``) and
     python -m tests.test_torch_bench_reference --n 70000
 
 (about two minutes on a CPU; the fixtures are the port's numpy copies,
-bit-identical to the JAX package's).  The tests below run each row
-through both packages at a small n and hold the port's conservation to
-the JAX package's.
+bit-identical to the JAX package's).  The sampling phase's constants
+(``JAX_SAMPLING_*``: ``embed(**bench.SAMPLING_EMBED)`` with the sampling
+optimizer and HDBSCAN*, over three seeds for the spread) and the
+estimator phase's (``JAX_STATS_*``: the ``--stats`` numbers of the
+blobs rows' 20-NN graph) come from
+
+    python -m tests.test_torch_bench_reference --n 70000 \
+        --optimizer sampling --seeds 0 1 2
+
+(one JSON line a seed, then the estimators' line).  The tests below run
+each row through both packages at a small n and hold the port's
+conservation, clusters and estimators to the JAX package's.
 """
 
 import argparse
@@ -24,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import annembed_tpu_torch as ta
 from annembed_tpu_torch import bench as t_bench
 from annembed_tpu_torch.io.synthetic import (synthetic_blobs,
                                              synthetic_clustered_manifold)
@@ -99,6 +109,43 @@ def jax_bench_record(n):
     return rec
 
 
+def jax_sampling_row(x, prefix, seed):
+    """The JAX package's ``embed(**SAMPLING_EMBED)`` record of one row."""
+    import annembed_tpu as ja
+    _, info = ja.embed(x, seed=seed,
+                       params=ja.EmbedderParams(optimizer="sampling"),
+                       **t_bench.SAMPLING_EMBED)
+    rec = t_bench.sampling_record(info, prefix)
+    rec[prefix + "batch_size"] = info["batch_size"]
+    rec[prefix + "steps_per_batch"] = info["steps_per_batch"]
+    return rec
+
+
+def jax_stats_record(x):
+    """The CLI's ``--stats`` numbers of the rows' 20-NN graph, through
+    the JAX package."""
+    import jax.numpy as jnp
+    from annembed_tpu import (Hubness, KnnParams, build_kgraph,
+                              intrinsic_dim_2nn, intrinsic_dim_levina_bickel)
+    g = build_kgraph(jnp.asarray(x, jnp.float32), t_bench.STATS_NBNG,
+                     params=KnnParams(knbn=t_bench.KNBN))
+    hub = Hubness.new(g)
+    return {"intrinsic_dim": list(intrinsic_dim_levina_bickel(g)),
+            "intrinsic_dim_2nn": intrinsic_dim_2nn(g),
+            "hubness_skew": hub.get_standard3m()}
+
+
+def port_stats_record(x):
+    """``jax_stats_record`` through the port on the CPU."""
+    g = ta.build_kgraph(torch.from_numpy(x).to(torch.float32),
+                        t_bench.STATS_NBNG,
+                        params=ta.KnnParams(knbn=t_bench.KNBN))
+    hub = ta.Hubness.new(g)
+    return {"intrinsic_dim": list(ta.intrinsic_dim_levina_bickel(g)),
+            "intrinsic_dim_2nn": ta.intrinsic_dim_2nn(g),
+            "hubness_skew": hub.get_standard3m()}
+
+
 @pytest.mark.parametrize("prefix", list(ROWS), ids=["blobs", "manifold"])
 def test_port_bench_row_conserves_as_jax_does(prefix):
     """Same rows, independent random draws: conservation agrees within
@@ -120,12 +167,69 @@ def test_port_bench_row_conserves_as_jax_does(prefix):
         assert abs(got[prefix + key] - want[prefix + key]) < 0.25, key
 
 
+@pytest.mark.parametrize("prefix", list(ROWS), ids=["blobs", "manifold"])
+def test_port_sampling_row_matches_jax(prefix):
+    """The sampling path at a small n: the same batch sizing, the same
+    clusters, conservation within the chaotic run's spread."""
+    x = ROWS[prefix](SMALL_N)
+    want = jax_sampling_row(x, prefix, seed=0)
+    _, info = ta.embed(x, params=ta.EmbedderParams(optimizer="sampling"),
+                       device="cpu", **t_bench.SAMPLING_EMBED)
+    got = t_bench.sampling_record(info, prefix)
+    assert (info["batch_size"], info["steps_per_batch"]) == (
+        want[prefix + "batch_size"], want[prefix + "steps_per_batch"])
+    assert got[prefix + "n_clusters"] == want[prefix + "n_clusters"]
+    assert got[prefix + "noise_fraction"] == want[prefix + "noise_fraction"]
+    assert abs(got[prefix + "no_match"]
+               - want[prefix + "no_match"]) <= 0.03 * SMALL_N
+    for key in ("mean_matched", "compat_mean_matched"):
+        assert abs(got[prefix + key] - want[prefix + key]) < 0.25, key
+    rel = abs(got[prefix + "final_ce"] - want[prefix + "final_ce"])
+    assert rel <= 0.05 * abs(want[prefix + "final_ce"])
+
+
+def test_port_stats_match_jax_on_the_bench_rows():
+    """The estimator record on the blobs rows' 20-NN graph: the exact
+    graph is the same in both packages, so the numbers agree to f32
+    rounding (1e-5 relative)."""
+    x = ROWS[""](SMALL_N)
+    want, got = jax_stats_record(x), port_stats_record(x)
+    for key in ("intrinsic_dim_2nn", "hubness_skew"):
+        assert abs(got[key] - want[key]) <= 1e-5 * abs(want[key]), key
+    for g, w in zip(got["intrinsic_dim"], want["intrinsic_dim"]):
+        assert abs(g - w) <= 1e-5 * abs(w)
+
+
 if __name__ == "__main__":
     import jax
     jax.config.update("jax_platforms", "cpu")
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=t_bench.N)
-    n = p.parse_args().n
-    t0 = time.perf_counter()
-    rec = jax_bench_record(n)
-    print(json.dumps({"n": n, "seconds": time.perf_counter() - t0, **rec}))
+    p.add_argument("--optimizer", choices=["dense", "sampling"],
+                   default="dense",
+                   help="dense: the bench workload's record; sampling: "
+                        "embed(**SAMPLING_EMBED) a seed, then the "
+                        "estimators' record")
+    p.add_argument("--seeds", type=int, nargs="+", default=[0])
+    args = p.parse_args()
+    n = args.n
+    if args.optimizer == "dense":
+        t0 = time.perf_counter()
+        rec = jax_bench_record(n)
+        print(json.dumps({"n": n, "seconds": time.perf_counter() - t0,
+                          **rec}), flush=True)
+    else:
+        rows = {prefix: make(n) for prefix, make in ROWS.items()}
+        for seed in args.seeds:
+            t0 = time.perf_counter()
+            rec = {}
+            for prefix, x in rows.items():
+                rec.update(jax_sampling_row(x, prefix, seed))
+            print(json.dumps({"n": n, "seed": seed, "optimizer": "sampling",
+                              "seconds": time.perf_counter() - t0, **rec}),
+                  flush=True)
+        t0 = time.perf_counter()
+        rec = jax_stats_record(rows[""])
+        print(json.dumps({"n": n, "stats": "blobs",
+                          "seconds": time.perf_counter() - t0, **rec}),
+              flush=True)

@@ -155,14 +155,25 @@ def test_cli_prints_the_jax_keys(tmp_path, capsys):
     assert set(td) == set(jd)
 
 
-@pytest.mark.parametrize("flag", [["--stats"], ["--cluster", "5"],
-                                  ["--graph-cache", "g.npz"],
-                                  ["--n-devices", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, flag):
+def _cli_argv(tmp_path, flag):
     src = tmp_path / "x.csv"
     _write_csv(src, _strip(50, 3))
+    return ["embed", "--csv", str(src), "--device", "cpu",
+            "--outfile", str(tmp_path / "e.csv")] + flag
+
+
+@pytest.mark.parametrize("flag", [["--graph-cache", "g.npz"],
+                                  ["--n-devices", "2"]])
+def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError):
-        t_cli.main(["embed", "--csv", str(src), "--device", "cpu"] + flag)
+        t_cli.main(_cli_argv(tmp_path, flag))
+
+
+@pytest.mark.parametrize("flag, key", [(["--stats"], "hubness_skew"),
+                                       (["--cluster", "5"], "cluster")])
+def test_formerly_refused_cli_flags_run(tmp_path, flag, key, capsys):
+    out = _cli_json(t_cli.main, _cli_argv(tmp_path, flag), capsys)
+    assert key in out and out["n"] == 50
 
 
 def test_cli_ivf_flags_reach_the_build(tmp_path, capsys, monkeypatch):

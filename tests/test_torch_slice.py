@@ -119,15 +119,19 @@ def test_one_step_embed_runs():
 
 
 UNSUPPORTED = [
-    dict(cluster=5), dict(n_devices=2), dict(graph_cache="g.npz"),
-    dict(embed_cache="e.npy"),
-    dict(params=TEP(optimizer="sampling")),
+    dict(n_devices=2), dict(graph_cache="g.npz"), dict(embed_cache="e.npy"),
     dict(params=TEP(dense_gather_reuse=2)),
-    dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
     dict(knn_params=ta.KnnParams(knbn=6, topk_recall=0.99)),
-    dict(knn_params=ta.KnnParams(knbn=6, dtype="bfloat16")),
     dict(params=TEP(dense_parallel_kicks=True)),
     dict(params=TEP(dense_n_blocks=2)),
+]
+# refused until they were ported: HDBSCAN* (``cluster``), the sampling
+# optimizer, 600 rows above a limit of 100 (they never reach the brute
+# build) and bfloat16 panels
+FORMERLY_REFUSED = [
+    dict(cluster=5), dict(params=TEP(optimizer="sampling")),
+    dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
+    dict(knn_params=ta.KnnParams(knbn=6, dtype="bfloat16")),
 ]
 
 
@@ -141,48 +145,56 @@ def _no_graph_build(monkeypatch):
         monkeypatch.setattr(ta.knn.api, name, built)
 
 
-def _now_runs(kwargs, monkeypatch) -> bool:
-    """The two cases that were refused until the IVF build and the
-    bfloat16 panels were ported now run: 600 rows above a limit of 100
-    never reach the brute build, and bfloat16 panels reach it."""
+def _no_brute_above_limit(kwargs, monkeypatch):
+    """Make the brute build fail the test when the rows are above the
+    case's ``brute_force_limit``."""
     kp = kwargs.get("knn_params")
-    if kp is None or kp.topk_recall > 0:
-        return False
-    if kp.brute_force_limit < 600:
+    if kp is not None and kp.brute_force_limit < 600:
         def brute(*args, **kw):
             raise AssertionError("the brute build ran above its limit")
         monkeypatch.setattr(ta.knn.api, "knn_graph_brute", brute)
-    return True
 
 
 @pytest.mark.parametrize("kwargs", UNSUPPORTED)
 def test_unsupported_options_raise(kwargs, monkeypatch):
-    x, labels = _blobs()
-    if _now_runs(kwargs, monkeypatch):
-        y, info = ta.embed(x, nbng=6, batch=5, device="cpu", **kwargs)
-        assert y.shape == (600, 2) and np.isfinite(y).all()
-        assert _accuracy(y, labels) >= 0.85
-        return
+    x, _ = _blobs()
     _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
         ta.embed(x, nbng=6, batch=2, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(n_devices=2),
-    dict(knn_params=ta.KnnParams(knbn=6, brute_force_limit=100)),
-    dict(knn_params=ta.KnnParams(knbn=6, dtype="bfloat16")),
-])
-def test_dmap_embed_refuses_before_graph_build(kwargs, monkeypatch):
+@pytest.mark.parametrize("name", ["Dense", "samplng"])
+def test_unknown_optimizer_refused_before_graph_build(name, monkeypatch):
     x, _ = _blobs()
-    if _now_runs(kwargs, monkeypatch):
-        y, info = ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
-        assert y.shape == (600, 2) and np.isfinite(y).all()
-        assert info["nb_embedded"] == 600
-        return
+    _no_graph_build(monkeypatch)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ta.embed(x, nbng=6, batch=2, device="cpu",
+                 params=TEP(optimizer=name))
+
+
+@pytest.mark.parametrize("kwargs", FORMERLY_REFUSED)
+def test_formerly_refused_options_run(kwargs, monkeypatch):
+    x, labels = _blobs()
+    _no_brute_above_limit(kwargs, monkeypatch)
+    y, info = ta.embed(x, nbng=6, batch=5, device="cpu", **kwargs)
+    assert y.shape == (600, 2) and np.isfinite(y).all()
+    assert _accuracy(y, labels) >= 0.85
+
+
+def test_dmap_embed_refuses_before_graph_build(monkeypatch):
+    x, _ = _blobs()
     _no_graph_build(monkeypatch)
     with pytest.raises(NotImplementedError):
-        ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
+        ta.dmap_embed(x, nbng=6, device="cpu", n_devices=2)
+
+
+@pytest.mark.parametrize("kwargs", FORMERLY_REFUSED[2:])
+def test_dmap_embed_formerly_refused_options_run(kwargs, monkeypatch):
+    x, _ = _blobs()
+    _no_brute_above_limit(kwargs, monkeypatch)
+    y, info = ta.dmap_embed(x, nbng=6, device="cpu", **kwargs)
+    assert y.shape == (600, 2) and np.isfinite(y).all()
+    assert info["nb_embedded"] == 600
 
 
 def test_csv_path_and_missing_card_raise(tmp_path):
