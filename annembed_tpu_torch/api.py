@@ -2,15 +2,16 @@
 reference src/python.rs:109 and :201).
 
 Same keyword surface as the JAX package, csv paths or arrays in, plus an
-explicit ``device``.  Every knob the port does not support yet raises
-``NotImplementedError`` naming its ROADMAP item, before any data is
-moved to the device or any graph is built.  Graphs above
+explicit ``device``.  The multi-device knobs (``mesh``, ``n_devices``)
+raise ``NotImplementedError`` naming their ROADMAP item, before any data
+is moved to the device or any graph is built.  Graphs above
 ``KnnParams.brute_force_limit`` rows take the IVF + NN-descent build.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Optional, Union
@@ -20,6 +21,7 @@ import torch
 
 from .device import resolve_device
 from .estimators.hdbscan import hdbscan
+from .io import checkpoint as ckpt
 from .io.csv_io import (get_toembed_from_csv, write_csv_array2,
                         write_csv_labeled_array2)
 from .knn.api import build_kgraph
@@ -29,6 +31,8 @@ from .knn.hierarchy import build_projection
 from .optim.embedder import Embedder, check_embedder_params
 from .params import DiffusionParams, EmbedderParams, KnnParams
 from .spectral.diffmaps import DiffusionMaps
+
+logger = logging.getLogger(__name__)
 
 ArrayLike = Union[str, os.PathLike, np.ndarray]
 
@@ -47,12 +51,10 @@ def _finalize_info(info: dict) -> dict:
 
 
 def _refuse(**flags) -> None:
-    roadmap = {"mesh": "A14", "n_devices": "A14", "graph_cache": "A12",
-               "embed_cache": "A12"}
     for name, on in flags.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet "
-                                      f"(ROADMAP {roadmap[name]})")
+                                      "(ROADMAP A14)")
 
 
 def _check_graph_options(distance: str, knn_params: KnnParams) -> None:
@@ -119,10 +121,17 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     nodes.  ``info`` carries the JAX package's keys; with ``layer > 0``
     also ``graph_build_phases`` (small graph, large graph, projection
     seconds, and the IVF build's phases as ``<graph>/<phase>``) and
-    ``projection_distance_quantiles``."""
-    _refuse(mesh=mesh is not None, n_devices=n_devices > 1,
-            graph_cache=bool(graph_cache) or graph_cache_eager,
-            embed_cache=bool(embed_cache))
+    ``projection_distance_quantiles``.
+
+    ``graph_cache`` (an npz path, either package's layout) loads the kNN
+    graph, or for ``layer > 0`` the projection, in place of the build;
+    if absent, the graph is saved there at the end of the pipeline, or
+    right after the build with ``graph_cache_eager``.  ``embed_cache``
+    saves the embedding after the optimize phase; an existing one is
+    loaded instead and the run goes straight to the quality tail (a
+    shape other than (n, dim) raises).  With either cache,
+    ``info["checkpoints"]`` holds the seconds of each load and save."""
+    _refuse(mesh=mesh is not None, n_devices=n_devices > 1)
     if cluster == 1:
         raise ValueError("cluster is HDBSCAN*'s min_cluster_size: >= 2")
     if params is None:
@@ -143,32 +152,74 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
 
     t0 = time.perf_counter()
     extra = {}
-    if layer > 0:
-        proj = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
-                                distance=distance, params=knn_params,
-                                seed=seed)
-        graph_build_time = time.perf_counter() - t0
-        extra["graph_build_phases"] = dict(proj.timings)
-        extra["projection_distance_quantiles"] = \
-            proj.projection_distance_quantiles()
-        emb = Embedder.from_hkgraph(proj, params)
+    saves = {}        # the checkpoints' load and save seconds
+    graph_loaded = bool(graph_cache) and ckpt.checkpoint_exists(graph_cache)
+    if graph_loaded:
+        load = ckpt.load_projection if layer > 0 else ckpt.load_kgraph
+        graph = load(graph_cache, expect_n=x.shape[0], device=dev)
+        logger.info("loaded %s checkpoint from %s",
+                    "projection" if layer > 0 else "kNN graph", graph_cache)
+    elif layer > 0:
+        graph = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
+                                 distance=distance, params=knn_params,
+                                 seed=seed)
+        extra["graph_build_phases"] = dict(graph.timings)
     else:
-        g = build_kgraph(x, nbng, distance=distance, params=knn_params)
-        _sync(dev)
-        graph_build_time = time.perf_counter() - t0
-        emb = Embedder.new(g, params)
-    y_dev = emb.embed()
+        graph = build_kgraph(x, nbng, distance=distance, params=knn_params)
+    _sync(dev)
+    if graph_loaded:
+        saves["graph_load_s"] = time.perf_counter() - t0
+
+    def save_graph():
+        t = time.perf_counter()
+        (ckpt.save_projection if layer > 0 else ckpt.save_kgraph)(
+            graph_cache, graph)
+        saves["graph_save_s"] = time.perf_counter() - t
+
+    if graph_cache and graph_cache_eager and not graph_loaded:
+        save_graph()
+    graph_build_time = time.perf_counter() - t0
+    if layer > 0:
+        extra["projection_distance_quantiles"] = \
+            graph.projection_distance_quantiles()
+        emb = Embedder.from_hkgraph(graph, params)
+    else:
+        emb = Embedder.new(graph, params)
+    y_host = None
+    if embed_cache and ckpt.checkpoint_exists(embed_cache):
+        # resume straight into the quality tail
+        t = time.perf_counter()
+        y_host = ckpt.load_embedding(embed_cache)
+        if y_host.shape != (x.shape[0], dim):
+            raise ValueError(
+                f"embed_cache {embed_cache!r} has shape {y_host.shape}, "
+                f"expected {(x.shape[0], dim)} — stale checkpoint from "
+                "another run? delete it or fix the path")
+        emb.embedding = y_dev = torch.from_numpy(y_host).to(dev)
+        saves["embedding_load_s"] = time.perf_counter() - t
+        logger.info("loaded embedding checkpoint from %s", embed_cache)
+    else:
+        y_dev = emb.embed()
+        if embed_cache:
+            t = time.perf_counter()
+            y_host = y_dev.cpu().numpy()
+            ckpt.save_embedding(embed_cache, y_host)
+            saves["embedding_save_s"] = time.perf_counter() - t
     q = None
     if with_quality:
         q = emb.get_quality_estimate_from_edge_length(
             nbng=quality_nbng, sample_fraction=quality_fraction,
             knn_params=knn_params,
             radius_k_compat=quality_radius_compat or None)
-    y = y_dev.cpu().numpy()
+    y = y_dev.cpu().numpy() if y_host is None else y_host
     info = _finalize_info(emb.info)
     info.update(extra)
     info["graph_build_time"] = graph_build_time
     info["total_time"] = time.perf_counter() - t0
+    if graph_cache and not ckpt.checkpoint_exists(graph_cache):
+        save_graph()
+    if saves:
+        info["checkpoints"] = saves
     if return_graph:
         info["kgraph"] = emb.get_kgraph()
     if cluster > 0:

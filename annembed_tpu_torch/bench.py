@@ -25,8 +25,9 @@ to stderr.
 ``SAMPLING_EMBED`` is the same rows' path through ``embed`` with the
 reference's sampling optimizer and HDBSCAN* (chip_smoke.py's sampling
 phase; ``sampling_record`` reads its conservation and clusters from the
-``info`` of either package), and ``STATS_NBNG`` the width of the CLI's
-``--stats`` graph.
+``info`` of either package), ``KNOB_EMBED`` with ``DENSE_KNOBS`` their
+path through ``embed`` with one dense knob set (chip_smoke's phase 12),
+and ``STATS_NBNG`` the width of the CLI's ``--stats`` graph.
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ SAMPLING_EMBED = dict(dim=DIM, nbng=KNBN, batch=20, nbsample=10,
                       quality_radius_compat=125, cluster=MIN_CLUSTER_SIZE)
 #: the neighbours of the CLI's ``--stats`` graph: max(nbng, 20)
 STATS_NBNG = max(KNBN, 20)
+#: ``embed``'s call on a bench row with one dense knob set (the
+#: defaults otherwise: 20 batches, n_sub 60), and the knobs
+KNOB_EMBED = dict(dim=DIM, nbng=KNBN, with_quality=True, quality_nbng=50,
+                  quality_radius_compat=125)
+DENSE_KNOBS = {"n_blocks": dict(dense_n_blocks=2),
+               "row_major": dict(dense_scatter_free=False),
+               "parallel_kicks": dict(dense_parallel_kicks=True),
+               "gather_reuse": dict(dense_gather_reuse=8,
+                                    dense_gather_reuse_after=0.5)}
 
 
 def _note(msg: str) -> None:

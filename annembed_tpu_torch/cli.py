@@ -78,9 +78,11 @@ def main_embed(argv=None) -> int:
                    help="intrinsic dimension + hubness statistics on a "
                         "max(nbng, 20)-NN graph of the csv rows")
     p.add_argument("--graph-cache", default=None,
-                   help="save/load the kNN graph (not ported: ROADMAP A12)")
+                   help="npz path: load the kNN graph (the projection with "
+                        "--layer > 0) from it, or save it there after the "
+                        "run")
     p.add_argument("--graph-cache-eager", action="store_true",
-                   help="save the graph right after the build (A12)")
+                   help="save the --graph-cache right after the build")
     p.add_argument("--cluster", type=int, default=0, metavar="MCS",
                    help="run HDBSCAN* on the kNN graph with this "
                         "min_cluster_size; writes clusters.csv next to "

@@ -29,12 +29,13 @@ _EXACT_PANEL_MAX_D = 3
 
 
 def check_knobs(dtype: str, topk_recall: float) -> None:
-    """Raise on the KnnParams panel knobs that have no port, and on an
-    unknown panel dtype."""
-    if topk_recall > 0.0:
-        raise NotImplementedError(
-            "topk_recall > 0 selects candidates with the TPU ApproxTopK "
-            "reduction, which has no counterpart here; use 0 (exact)")
+    """Raise on an unknown panel dtype or an out-of-range
+    ``topk_recall``.  The JAX package selects its candidates with
+    ``lax.approx_max_k`` at ``topk_recall`` > 0; that reduction is
+    approximate only on a TPU and returns the exact top k elsewhere, so
+    the port runs its exact selection at every ``topk_recall``."""
+    if not 0.0 <= topk_recall <= 1.0:
+        raise ValueError(f"topk_recall={topk_recall} outside [0, 1]")
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown panel dtype {dtype!r}; valid: "
                          "'float32', 'bfloat16'")

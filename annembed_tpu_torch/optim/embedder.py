@@ -32,9 +32,9 @@ from ..graph.proba import NodeParams, to_proba_edges
 from ..knn.hierarchy import KGraphProjection
 from ..params import DiffusionParams, EmbedderParams
 from ..spectral.diffmaps import DiffusionMaps
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, device_trace
 from .ce import build_edge_set, ce_value_dense, run_entropy_optimization
-from .dense import check_dense_params, run_dense_optimization
+from .dense import run_dense_optimization
 
 logger = logging.getLogger(__name__)
 
@@ -68,16 +68,10 @@ OPTIMIZERS = ("dense", "dense!", "sampling")
 
 
 def check_embedder_params(params: EmbedderParams) -> None:
-    """Raise on an unknown optimizer name and on the optimizer knobs the
-    port does not support."""
+    """Raise on an unknown optimizer name."""
     if params.optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {params.optimizer!r}; "
                          f"expected one of {OPTIMIZERS}")
-    if params.trace_dir:
-        raise NotImplementedError("trace_dir (device traces) is not "
-                                  "ported; profile with torch.profiler")
-    if _is_dense(params):
-        check_dense_params(params)
 
 
 def _is_dense(params: EmbedderParams) -> bool:
@@ -196,7 +190,9 @@ class Embedder:
                     "optimizer=%s, batches=%d)", g.nb_nodes,
                     g.indices.shape[1], "dense" if dense else "sampling",
                     p.nb_grad_batch)
-        with self.timer.phase("entropy_optimization") as sync:
+        trace = device_trace(p.trace_dir,
+                             f"entropy_optimization_n{g.nb_nodes}")
+        with trace, self.timer.phase("entropy_optimization") as sync:
             hub = hubness_sampling_weights(g) if p.hubness_weighting else None
             if dense:
                 info = {"initial_ce": ce_value_dense(init, g, npar.probas,

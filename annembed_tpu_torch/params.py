@@ -3,8 +3,8 @@
 A framework-free copy of ``annembed_tpu/params.py`` (same fields, same
 defaults; tests/test_torch_params.py pins them field by field), kept
 separate because importing any ``annembed_tpu`` module imports jax.
-Knobs the port does not support yet raise ``NotImplementedError`` at the
-entry points.  Mirrors the reference parameter surface:
+The multi-device knobs raise ``NotImplementedError`` at the entry
+points.  Mirrors the reference parameter surface:
   - ``EmbedderParams``  (reference: src/embedparams.rs:77-184)
   - ``DiffusionParams`` (reference: src/diffmaps.rs:72-248)
   - ``KnnParams``       (replaces the HNSW construction knobs of
@@ -89,8 +89,9 @@ class EmbedderParams:
     #: only its own endpoint; mutual pairs split the move between their
     #: two rows) — removes the reverse segment-sum per sweep.
     dense_scatter_free: bool = True
-    #: write a jax.profiler device trace of the optimization phase here
-    #: (view with tensorboard/xprof); None = off.
+    #: write a torch.profiler trace (host and card) of each optimization
+    #: phase here as a Chrome trace, ``entropy_optimization_n<n>.json``;
+    #: None = off.
     trace_dir: Optional[str] = None
     #: dense optimizer: floor of the per-sweep pair closure factor.
     #: 0.02 = one clipped sample's worth ((1-2*0.49); embedder.rs:1228);

@@ -8,9 +8,9 @@ bench's quality tail, and returns the record under the port bench's
 keys.  Regenerate chip_smoke.py's ``JAX_NO_MATCH`` (``no_match``) and
 ``JAX_MANIFOLD_MEAN_MATCHED`` (``manifold_mean_matched``) with
 
-    python -m tests.test_torch_bench_reference --n 70000
+    python -m tests.test_torch_bench_reference --n 70000 --seeds 0 1 2
 
-(about two minutes on a CPU; the fixtures are the port's numpy copies,
+(about two minutes a seed on a CPU; the fixtures are the port's numpy copies,
 bit-identical to the JAX package's).  The sampling phase's constants
 (``JAX_SAMPLING_*``: ``embed(**bench.SAMPLING_EMBED)`` with the sampling
 optimizer and HDBSCAN*, over three seeds for the spread) and the
@@ -20,7 +20,13 @@ blobs rows' 20-NN graph) come from
     python -m tests.test_torch_bench_reference --n 70000 \
         --optimizer sampling --seeds 0 1 2
 
-(one JSON line a seed, then the estimators' line).  The tests below run
+(one JSON line a seed, then the estimators' line).  The dense-knob
+phase's (``JAX_KNOB_NO_MATCH``: ``embed(**bench.KNOB_EMBED)`` on the
+blobs rows with each of ``bench.DENSE_KNOBS``) come from
+
+    python -m tests.test_torch_bench_reference --n 70000 --optimizer knobs
+
+(one JSON line a knob).  The tests below run
 each row through both packages at a small n and hold the port's
 conservation, clusters and estimators to the JAX package's.
 """
@@ -42,8 +48,9 @@ from annembed_tpu_torch.knn.api import sampled_exact_recall
 SMALL_N = 1500
 
 
-def jax_run_once(x):
-    """annembed_tpu_torch.bench.run_once through annembed_tpu."""
+def jax_run_once(x, seed=0):
+    """annembed_tpu_torch.bench.run_once through annembed_tpu, the
+    optimizer's draws from ``seed``."""
     from annembed_tpu.graph.kgraph import KGraph
     from annembed_tpu.graph.proba import to_proba_edges
     from annembed_tpu.knn.brute import knn_graph_brute
@@ -63,7 +70,8 @@ def jax_run_once(x):
     params = EmbedderParams(
         asked_dim=t_bench.DIM,
         nb_grad_batch=sum(b for b, _ in t_bench.SCHEDULE),
-        n_sub_schedule=t_bench.SCHEDULE, dense_neighbor_exclusion=False)
+        n_sub_schedule=t_bench.SCHEDULE, dense_neighbor_exclusion=False,
+        seed=seed)
     y, _ = run_dense_optimization(init, g, npar, params, n_sub=15)
     return y, g
 
@@ -86,13 +94,13 @@ ROWS = {"": lambda n: synthetic_blobs(n, t_bench.D, 42),
         "manifold_": lambda n: synthetic_clustered_manifold(n, t_bench.D)}
 
 
-def jax_bench_row(x, prefix):
+def jax_bench_row(x, prefix, seed=0):
     """The JAX package's record of one bench row on rows ``x``."""
     import jax.numpy as jnp
     from annembed_tpu.knn.api import sampled_exact_recall
 
     xj = jnp.asarray(x, jnp.float32)
-    y, g = jax_run_once(xj)
+    y, g = jax_run_once(xj, seed)
     rec = _conservation(g, y, prefix)
     if not prefix:
         n = x.shape[0]
@@ -101,11 +109,11 @@ def jax_bench_row(x, prefix):
     return rec
 
 
-def jax_bench_record(n):
+def jax_bench_record(n, seed=0):
     """The JAX package's record of the bench workload at n rows."""
     rec = {}
     for prefix, make in ROWS.items():
-        rec.update(jax_bench_row(make(n), prefix))
+        rec.update(jax_bench_row(make(n), prefix, seed))
     return rec
 
 
@@ -119,6 +127,18 @@ def jax_sampling_row(x, prefix, seed):
     rec[prefix + "batch_size"] = info["batch_size"]
     rec[prefix + "steps_per_batch"] = info["steps_per_batch"]
     return rec
+
+
+def jax_knob_record(x, knob):
+    """The JAX package's ``embed(**KNOB_EMBED)`` quality on rows ``x``
+    with the dense knob ``knob`` of ``DENSE_KNOBS`` set."""
+    import annembed_tpu as ja
+    _, info = ja.embed(x, params=ja.EmbedderParams(
+        **t_bench.DENSE_KNOBS[knob]), **t_bench.KNOB_EMBED)
+    q = info["quality"]
+    return {f"{knob}_no_match": int(q["nb_without_match"]),
+            f"{knob}_mean_matched": q["mean_nb_matched"],
+            f"{knob}_compat_no_match": int(q["compat_nb_without_match"])}
 
 
 def jax_stats_record(x):
@@ -205,19 +225,30 @@ if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=t_bench.N)
-    p.add_argument("--optimizer", choices=["dense", "sampling"],
+    p.add_argument("--optimizer", choices=["dense", "sampling", "knobs"],
                    default="dense",
                    help="dense: the bench workload's record; sampling: "
                         "embed(**SAMPLING_EMBED) a seed, then the "
-                        "estimators' record")
+                        "estimators' record; knobs: embed(**KNOB_EMBED) "
+                        "on the blobs rows with each of DENSE_KNOBS")
     p.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = p.parse_args()
     n = args.n
     if args.optimizer == "dense":
-        t0 = time.perf_counter()
-        rec = jax_bench_record(n)
-        print(json.dumps({"n": n, "seconds": time.perf_counter() - t0,
-                          **rec}), flush=True)
+        for seed in args.seeds:
+            t0 = time.perf_counter()
+            rec = jax_bench_record(n, seed)
+            print(json.dumps({"n": n, "seed": seed,
+                              "seconds": time.perf_counter() - t0, **rec}),
+                  flush=True)
+    elif args.optimizer == "knobs":
+        x = ROWS[""](n)
+        for knob in t_bench.DENSE_KNOBS:
+            t0 = time.perf_counter()
+            rec = jax_knob_record(x, knob)
+            print(json.dumps({"n": n, "knob": knob,
+                              "seconds": time.perf_counter() - t0, **rec}),
+                  flush=True)
     else:
         rows = {prefix: make(n) for prefix, make in ROWS.items()}
         for seed in args.seeds:

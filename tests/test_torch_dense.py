@@ -147,15 +147,24 @@ def test_run_dense_optimization_matches_jax(rng, hub):
 
 
 def test_run_dense_optimization_schedule_and_refusals(rng):
+    """A schedule runs its phases' sweeps; each dense knob runs (their
+    parity is tests/test_torch_dense_knobs.py), and the combinations the
+    JAX package refuses raise ValueError."""
     *_, tg, tn, y0 = _setup(rng)
-    p = TEP(nb_grad_batch=4, n_sub_schedule=((2, 10), (2, 20)))
+    p = TEP(nb_grad_batch=4, n_sub_schedule=((2, 12), (2, 24)))
     y, info = td.run_dense_optimization(torch.from_numpy(y0), tg, tn, p)
-    assert info["sweeps"] == 2 * 10 + 1 * 20
+    assert info["sweeps"] == 2 * 12 + 1 * 24
     assert torch.isfinite(y).all()
     for knob in (dict(dense_gather_reuse=2), dict(dense_n_blocks=2),
                  dict(dense_scatter_free=False),
                  dict(dense_parallel_kicks=True)):
-        with pytest.raises(NotImplementedError):
+        y, _ = td.run_dense_optimization(torch.from_numpy(y0), tg, tn,
+                                         dataclasses.replace(p, **knob))
+        assert torch.isfinite(y).all(), knob
+    for knob in (dict(dense_n_blocks=2, dense_scatter_free=False),
+                 dict(dense_n_blocks=5),
+                 dict(dense_n_blocks=2, dense_gather_reuse=2)):
+        with pytest.raises(ValueError):
             td.run_dense_optimization(torch.from_numpy(y0), tg, tn,
                                       dataclasses.replace(p, **knob))
 

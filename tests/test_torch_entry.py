@@ -162,18 +162,25 @@ def _cli_argv(tmp_path, flag):
             "--outfile", str(tmp_path / "e.csv")] + flag
 
 
-@pytest.mark.parametrize("flag", [["--graph-cache", "g.npz"],
-                                  ["--n-devices", "2"]])
+@pytest.mark.parametrize("flag", [["--n-devices", "2"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(NotImplementedError):
         t_cli.main(_cli_argv(tmp_path, flag))
 
 
-@pytest.mark.parametrize("flag, key", [(["--stats"], "hubness_skew"),
-                                       (["--cluster", "5"], "cluster")])
+@pytest.mark.parametrize("flag, key", [
+    (["--stats"], "hubness_skew"), (["--cluster", "5"], "cluster"),
+    (["--graph-cache", "{tmp}/g"], "checkpoints"),
+    (["--graph-cache", "{tmp}/g.npz", "--graph-cache-eager"], "checkpoints")])
 def test_formerly_refused_cli_flags_run(tmp_path, flag, key, capsys):
+    flag = [f.format(tmp=tmp_path) for f in flag]
     out = _cli_json(t_cli.main, _cli_argv(tmp_path, flag), capsys)
     assert key in out and out["n"] == 50
+    if "--graph-cache" in flag:
+        assert set(out[key]) == {"graph_save_s"}
+        # the second run loads the graph it saved
+        again = _cli_json(t_cli.main, _cli_argv(tmp_path, flag), capsys)
+        assert set(again[key]) == {"graph_load_s"}
 
 
 def test_cli_ivf_flags_reach_the_build(tmp_path, capsys, monkeypatch):

@@ -300,8 +300,10 @@ def test_unknown_options_raise(rng):
         tivf.knn_graph_ivf(x, 5, layout="tiled")
     with pytest.raises(ValueError, match="dtype"):
         tivf.knn_graph_ivf(x, 5, dtype="float16")
-    with pytest.raises(NotImplementedError):
-        tivf.knn_graph_ivf(x, 5, topk_recall=0.95)
+    # ApproxTopK's recall target selects exactly off a TPU
+    exact = tivf.knn_graph_ivf(x, 5)
+    for a, b in zip(tivf.knn_graph_ivf(x, 5, topk_recall=0.95), exact):
+        assert torch.equal(a, b)
 
 
 # --- build_kgraph above a lowered limit: statistical -----------------------
