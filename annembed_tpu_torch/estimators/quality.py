@@ -5,19 +5,20 @@ src/embedder.rs:620-753):
 
   1. for every original edge (i, j), the embedded length |y_i - y_j|;
   2. each evaluated node's embedded radius: the distance to its
-     ``radius_k``-th embedded neighbour, from one exact search of the
-     embedded cloud (``knn_search_brute`` with k + 1 columns, self
-     included, so column ``radius_k`` is the radius_k-th neighbour);
+     ``radius_k``-th embedded neighbour in a search of the embedded
+     cloud with self included, so column ``radius_k`` is the
+     radius_k-th neighbour;
   3. per node, how many original neighbours fall inside that radius,
      and the quantiles of edge_length / radius.
 
-The one exact search stands in for two of the JAX package's radius
-routes: its certified grid search (n > 50,000 at d = 2; ROADMAP A13),
-which tests/test_radius.py shows gives the brute search's distances, and
-the brute branch of its graph rebuild, whose self-excluded column
-radius_k - 1 is the same neighbour.  The full fraction above
-``brute_force_limit`` at d != 2 takes the third, as the JAX package
-does: an approximate IVF rebuild of the embedded cloud (``_ivf_radius``).
+The radius search takes the JAX package's routes.  At d = 2 above
+50,000 rows, sampled or not, it is the certified grid search
+(``knn/radius.py``), whose distances equal the brute search's; only the
+radius columns are kept.  The full fraction above ``brute_force_limit``
+at d != 2 takes an approximate IVF rebuild of the embedded cloud
+(``_ivf_radius``).  Everything else is the exact brute search, whose
+self-included column radius_k is the JAX graph rebuild's self-excluded
+column radius_k - 1.
 
 ``sample_fraction`` < 1 evaluates a node subsample drawn with numpy's
 ``default_rng(seed).choice``, the JAX package's draw, so both packages
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -37,12 +39,15 @@ from ..device import disable_tf32
 from ..graph.kgraph import KGraph
 from ..knn.api import build_kgraph
 from ..knn.brute import knn_search_brute
+from ..knn.radius import grid_radius_search, grid_shape
 from ..params import KnnParams
 from ..utils.stats import quantiles
 
 logger = logging.getLogger(__name__)
 
 _QS = (0.05, 0.25, 0.5, 0.75, 0.85, 0.95)
+#: d = 2 clouds above this many rows take the certified grid search
+GRID_MIN_ROWS = 50_000
 
 
 @dataclasses.dataclass
@@ -75,6 +80,12 @@ class QualityEstimate:
     #: (keys: radius_k, nb_without_match, frac_without_match,
     #: mean_nb_matched, mean_nb_matched_marginal, median_ratio)
     compat: Optional[Dict[str, float]] = None
+    #: per-node embedded radius at ``radius_k`` (rows as ratio_by_node)
+    radius: Optional[torch.Tensor] = None
+    #: how the radius was searched: route ("grid", "brute" or "ivf"),
+    #: queries, k, seconds (device synchronised), and for the grid g,
+    #: cap_cell and n_fallback (rows the certificate sent to brute)
+    radius_search: Optional[Dict[str, object]] = None
 
     def summary(self) -> Dict[str, float]:
         out = {
@@ -133,19 +144,37 @@ def _ivf_radius(y: torch.Tensor, cols: Sequence[int],
     return emb_graph.dists[:, [c - 1 for c in cols]].T.contiguous()
 
 
-def _radius_columns(y_rows, y, cols, knn_params: Optional[KnnParams],
-                    full: bool) -> torch.Tensor:
+def _radius_columns(y, sub, cols, knn_params: Optional[KnnParams]):
     """(len(cols), m) embedded distances at the given columns of a
-    self-including search of the rows against the whole cloud: exact,
-    except for the full fraction above ``brute_force_limit`` at d != 2
-    (``_ivf_radius``)."""
+    self-including search of the evaluated rows (``sub``, an int64
+    tensor on y's device, None for all) against the whole cloud, and
+    the route's record.  Exact, except for the full fraction above
+    ``brute_force_limit`` at d != 2 (``_ivf_radius``)."""
     n, d = y.shape
+    k = max(cols) + 1
+    m = n if sub is None else sub.shape[0]
     limit = (knn_params.brute_force_limit if knn_params is not None
              else KnnParams().brute_force_limit)
-    if full and d != 2 and n > limit:
-        return _ivf_radius(y, cols, knn_params)
-    _, sd = knn_search_brute(y_rows, y, k=max(cols) + 1)
-    return sd[:, list(cols)].T.contiguous()
+    t0 = time.perf_counter()
+    rec = {"queries": m, "k": k}
+    if d == 2 and n > GRID_MIN_ROWS:
+        ids = torch.arange(n, device=y.device) if sub is None else sub
+        sd, n_fb = grid_radius_search(y, ids, k, keep_cols=cols)
+        g, cap_cell = grid_shape(n, k)
+        rec.update(route="grid", g=g, cap_cell=cap_cell, n_fallback=n_fb)
+        radii = sd.T.contiguous()
+    elif sub is None and d != 2 and n > limit:
+        rec["route"] = "ivf"
+        radii = _ivf_radius(y, cols, knn_params)
+    else:
+        rec["route"] = "brute"
+        _, sd = knn_search_brute(y if sub is None else y[sub], y, k=k)
+        radii = sd[:, list(cols)].T.contiguous()
+    if y.is_cuda:
+        torch.cuda.synchronize(y.device)
+    rec["seconds"] = time.perf_counter() - t0
+    logger.info("quality radius search: %s", rec)
+    return radii, rec
 
 
 def _counts(lengths: torch.Tensor, radius: torch.Tensor, n: int,
@@ -170,6 +199,15 @@ def _counts(lengths: torch.Tensor, radius: torch.Tensor, n: int,
     }, ratios, ratio_q
 
 
+def quality_sample_ids(n: int, sample_fraction: float,
+                       seed: int) -> np.ndarray:
+    """The sorted node subsample of ``quality_estimate``: numpy's
+    ``default_rng(seed).choice``, the JAX package's draw."""
+    m = max(1, min(n, int(round(n * sample_fraction))))
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(n, size=m, replace=False)).astype(np.int32)
+
+
 def quality_estimate(g: KGraph, y, nbng: int = 50,
                      knn_params: KnnParams | None = None,
                      sample_fraction: float = 1.0, seed: int = 0,
@@ -192,21 +230,16 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
         radius_k = nbng
     cols = (radius_k, radius_k_compat) if radius_k_compat else (radius_k,)
 
-    sample_ids = None
+    sample_ids = sub = None
     if sample_fraction < 1.0:
-        m = max(1, min(n, int(round(n * sample_fraction))))
-        rng = np.random.default_rng(seed)
-        sample_ids = np.sort(rng.choice(n, size=m, replace=False)
-                             ).astype(np.int32)
+        sample_ids = quality_sample_ids(n, sample_fraction, seed)
+        m = sample_ids.shape[0]
         sub = torch.as_tensor(sample_ids, dtype=torch.int64, device=dev)
-        y_rows = y[sub]
-        lengths = edge_lengths_rows(y_rows, y, g.indices[sub])
+        lengths = edge_lengths_rows(y[sub], y, g.indices[sub])
     else:
         m = n
-        y_rows = y
         lengths = edge_lengths_rows(y, y, g.indices)
-    radii = _radius_columns(y_rows, y, cols, knn_params,
-                            full=sample_ids is None)
+    radii, search = _radius_columns(y, sub, cols, knn_params)
     radius = radii[0]
 
     head, ratios, ratio_q = _counts(lengths, radius, n, _QS)
@@ -227,10 +260,16 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
         nb_sampled=m, frac_without_match=head["frac_without_match"],
         sample_ids=sample_ids,
         mean_nb_matched_marginal=head["mean_nb_matched_marginal"],
-        compat=compat)
+        compat=compat, radius=radius, radius_search=search)
+    quality_estimate.last_radius_search = search
     logger.info(
         "quality: nb_without_match=%d (frac %.4f of %d sampled) "
         "mean_matched=%.3f median_ratio=%.3e mean_ratio=%.3e",
         est.nb_without_match, est.frac_without_match, m,
         est.mean_nb_matched, est.median_ratio, est.mean_ratio)
     return est
+
+
+#: the radius search record of the latest call, for callers that see
+#: only the summary (``embed(with_quality=True)``'s ``info["quality"]``)
+quality_estimate.last_radius_search = None

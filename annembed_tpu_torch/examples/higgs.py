@@ -20,8 +20,9 @@ The last stdout line has the keys of the JAX harness's record
 sampled rows, the quality summary).  The port's own fields
 (``graph_build_phases``, ``projection_distance_quantiles``,
 ``checkpoints`` with the cache load and save seconds, the top-1
-kernel's launches, peak host and device memory) go to stderr as one
-line starting ``port:``.
+kernel's launches, the quality radius search's route, seconds and
+certificate fallbacks, peak host and device memory) go to stderr as
+one line starting ``port:``.
 
 The JAX harness's channel-preflight watchdog (a thread that exits the
 process when the TPU runtime's first readback stalls) guards a TPU
@@ -242,6 +243,8 @@ def main(argv=None) -> int:
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
     port["top1_l2_launches"] = top1_l2.launches
+    if args.quality:
+        port["quality_radius"] = at.quality_estimate.last_radius_search
     port["peak_host_rss_gib"] = (resource.getrusage(resource.RUSAGE_SELF)
                                  .ru_maxrss / 2**20)
     if dev.type == "cuda":

@@ -1,4 +1,5 @@
-"""Fixed-degree kNN graph container and its COO symmetrization.
+"""Fixed-degree kNN graph container, its statistics and its COO
+symmetrization.
 
 Port of annembed_tpu/graph/kgraph.py (reference src/fromhnsw/kgraph.rs):
 a graph is a pair of dense tensors ``indices (n, k) int32`` and
@@ -9,8 +10,11 @@ operation is a gather, a sort or an ``index_add_``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import torch
+
+from ..utils.stats import quantiles
 
 
 @dataclasses.dataclass
@@ -28,6 +32,31 @@ class KGraph:
     @property
     def nbng(self) -> int:
         return self.indices.shape[1]
+
+    def compute_max_edge(self) -> torch.Tensor:
+        """Per-node max out-edge length (reference kgraph.rs:167)."""
+        return self.dists[:, -1]
+
+
+def kgraph_stats(g: KGraph) -> Dict[str, float]:
+    """In-degree extrema and quantiles of the min radius (distance to the
+    first neighbour) and of the max edge (reference ``KGraphStat`` /
+    ``get_kraph_stats``, kgraph.rs:47,372)."""
+    n, k = g.indices.shape
+    indeg = in_degree_counts(g)
+    first, last = g.dists[:, 0], g.dists[:, -1]
+    stats = {
+        "nb_nodes": float(n),
+        "nbng": float(k),
+        "min_in_degree": float(indeg.min()),
+        "max_in_degree": float(indeg.max()),
+        "mean_radius": float(first.mean()),
+    }
+    qs = (0.05, 0.25, 0.5, 0.75, 0.95)
+    for name, v in (("min_radius", first), ("max_radius", last)):
+        for q, val in zip(qs, quantiles(v, qs)):
+            stats[f"{name}_q{q:g}"] = float(val)
+    return stats
 
 
 @dataclasses.dataclass

@@ -7,15 +7,19 @@ For node x with sorted neighbour distances d_1 <= ... <= d_k:
   * p_i     = exp(-((d_i - d_1)_+ / scale_x)^beta), floored at PROBA_MIN,
               then row-normalized to 1
   * all-equal fallback (kdumap.rs:224-230): uniform 1/k.
+The reference's CKMS quantile telemetry (kdumap.rs:88-113) becomes the
+exact quantiles of ``proba_telemetry``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import torch
 
 from ..params import PROBA_MIN
+from ..utils.stats import quantiles
 from .kgraph import KGraph
 
 
@@ -26,6 +30,22 @@ class NodeParams:
 
     scale: torch.Tensor   # (n,)
     probas: torch.Tensor  # (n, k)
+
+    @property
+    def nb_nodes(self) -> int:
+        return self.probas.shape[0]
+
+    @property
+    def max_nbng(self) -> int:
+        return self.probas.shape[1]
+
+    def perplexity(self) -> torch.Tensor:
+        """exp(Shannon entropy) per node: the Hill number of the edge
+        distribution (reference nodeparam.rs:88-91)."""
+        p = self.probas
+        plogp = torch.where(p > 0, p * torch.log(p.clamp_min(1e-30)),
+                            torch.zeros_like(p))
+        return torch.exp(-plogp.sum(-1))
 
 
 def _to_proba_edges_impl(indices, dists, scale_rho: float, beta: float):
@@ -65,3 +85,15 @@ def to_proba_edges(g: KGraph, scale_rho: float = 1.0,
     scale, w = _to_proba_edges_impl(g.indices, g.dists, float(scale_rho),
                                     float(beta))
     return NodeParams(scale=scale, probas=w)
+
+
+def proba_telemetry(np_: NodeParams) -> Dict[str, float]:
+    """Quantiles of the scales, edge weights and perplexities (the
+    reference's CKMS telemetry, kdumap.rs:88-113), exact."""
+    qs = (0.05, 0.5, 0.95, 0.99)
+    out: Dict[str, float] = {}
+    for name, v in (("scale", np_.scale), ("weight", np_.probas),
+                    ("perplexity", np_.perplexity())):
+        for q, val in zip(qs, quantiles(v, qs)):
+            out[f"{name}_q{q:g}"] = float(val)
+    return out

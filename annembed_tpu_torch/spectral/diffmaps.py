@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 
 from ..graph.kgraph import KGraph, symmetric_coo_apply, symmetric_coo_plan
-from ..graph.laplacian import GraphLaplacian, alfa_normalize_coo
+from ..graph.laplacian import (GraphLaplacian, alfa_normalize_coo,
+                               laplacian_from_probas)
 from ..params import PROBA_MIN, DiffusionParams
 
 
@@ -63,11 +64,11 @@ def _density_from_kernel(rows, vals, n: int) -> torch.Tensor:
     return q / q.mean()
 
 
-def _spectral_coords(lambdas, u, scales, normalizer, t: Optional[float],
-                     real_dim: int):
-    """coord_ij = clip(lambda_{j+1}^t u_{i,j+1} / (scale_i sqrt(N_i /
-    mean N)), 10) with N the stored normalizer (diffmaps.rs:1196-1237);
-    ``t=None`` picks t with (lambda_2/lambda_1)^t < 0.9, capped at 5."""
+def _diffusion_coords(lambdas, u, weight, t: Optional[float],
+                      real_dim: int):
+    """lambda_{j+1}^t u_{i,j+1} / weight_i over the normalized
+    eigenvalues; ``t=None`` picks t with (lambda_2/lambda_1)^t < 0.9,
+    capped at 5."""
     norm_l = lambdas / lambdas[0]
     if t is None:
         ratio = torch.clamp(norm_l[2] / norm_l[1].clamp_min(1e-12),
@@ -75,11 +76,18 @@ def _spectral_coords(lambdas, u, scales, normalizer, t: Optional[float],
         time = torch.clamp_max(math.log(0.9) / torch.log(ratio), 5.0)
     else:
         time = t
-    weight = scales * torch.sqrt(normalizer / normalizer.mean())
     lam_t = torch.pow(norm_l[1:real_dim + 1], time)
-    coords = lam_t[None, :] * u[:, 1:real_dim + 1] \
+    return lam_t[None, :] * u[:, 1:real_dim + 1] \
         / weight.clamp_min(1e-30)[:, None]
-    return torch.clamp(coords, -10.0, 10.0)
+
+
+def _spectral_coords(lambdas, u, scales, normalizer, t: Optional[float],
+                     real_dim: int):
+    """coord_ij = clip(lambda_{j+1}^t u_{i,j+1} / (scale_i sqrt(N_i /
+    mean N)), 10) with N the stored normalizer (diffmaps.rs:1196-1237)."""
+    weight = scales * torch.sqrt(normalizer / normalizer.mean())
+    return torch.clamp(_diffusion_coords(lambdas, u, weight, t, real_dim),
+                       -10.0, 10.0)
 
 
 def _dmap_laplacian_impl(indices, dists, gnbn: int, epsil: float,
@@ -159,3 +167,32 @@ class DiffusionMaps:
                                            generator=generator)
         self.laplacian = lap
         return coords
+
+    def embed_from_data(self, x, knbn: int = 16, distance: str = "DistL2",
+                        omega=None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Data (a tensor, on its device) -> kNN graph -> diffusion
+        embedding (reference ``embed_from_hnsw``, diffmaps.rs:1114)."""
+        from ..knn.api import build_kgraph
+        g = build_kgraph(x, knbn, distance=distance)
+        return self.embed_from_kgraph(g, omega=omega, generator=generator)
+
+
+def get_dmap_embedding(g: KGraph, probas: torch.Tensor, asked_dim: int,
+                       t_opt: Optional[float] = None, omega=None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Legacy initialization (reference diffmaps.rs:1278-1350
+    ``get_dmap_embedding``, used when ``dmapnew = false``) on the kdumap
+    Laplacian of the probability graph: coordinates
+    lambda_{j+1}^t u_{i,j+1} / sqrt(D_i / mean D), unclipped.  The
+    reference clamps ``real_dim`` to u's column count and would then read
+    one column past it (diffmaps.rs:1326); this clamps to ncols - 1, as
+    its ``embed_from_laplacian`` does (diffmaps.rs:1208), since column 0
+    is skipped."""
+    lap = laplacian_from_probas(g, probas)
+    svd_res = lap.do_svd(asked_dim + 25, omega=omega, generator=generator)
+    weight = torch.sqrt(lap.normalizer / lap.normalizer.mean())
+    return _diffusion_coords(svd_res.s, svd_res.u, weight, t_opt,
+                             min(asked_dim, svd_res.u.shape[1] - 1))

@@ -19,8 +19,11 @@ CUDA device it exits 1 before printing any result):
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
    nprobe 24, bf16 panels, 4 NN-descent rounds at rho 0.5), both graphs
-   through the IVF + NN-descent build, with a sampled quality estimate;
-   then the same path on 200,000 rows, whose graphs are exact;
+   through the IVF + NN-descent build, with a sampled quality estimate
+   whose radius search goes through the certified grid (2,000 of its
+   rows held bit-equal to the brute search on the card); then phases 13
+   and 14 on its embedding and graph; then the same path on 200,000
+   rows, whose graphs are exact;
    then the parts of the build against exact search: the IVF +
    NN-descent graph of 1,000,000 rows in f32 and in bf16, the grid
    quantizer on a 1,000,000 x 2 cloud, and the full-fraction quality
@@ -49,13 +52,26 @@ CUDA device it exits 1 before printing any result):
    embedding cached: recall, label purity, both steps at S = 12, and
    frac_without_match near phase 4's S = 1 reading; then the same command
    again, which must load both caches, launch no kernel and give the
-   same quality fields;
+   same quality fields; then once more from the caches at the harness's
+   own quality defaults (nbng 100, compat 250, 200,000 queries), its
+   radius through the grid, 2,000 rows held bit-equal to brute;
 12. ``embed`` on the bench's 70,000 x 784 blobs rows with each dense knob
    (node blocks, the row-major scatter path, stacked kicks, the stale
    gather), each held to the JAX package's no_match of the same call; a
    ``trace_dir`` capture holding the card's kernels; the rows through
    gzip IDX files and back; ``extract_neighbourhood`` on the card against
-   the CPU.
+   the CPU;
+13. the full-fraction quality estimate of phase 4's 11M embedding at nbng
+   50 (every row a query of the certified grid, only the radius column
+   kept): 2,000 rows' radii bit-equal to brute, frac_without_match
+   within +-0.005 of phase 4's sampled reading, its seconds and peak
+   memory;
+14. the functions that complete the ported modules: ``kgraph_stats``
+   and ``proba_telemetry`` of phase 4's 11M graph against the same calls
+   on its CPU copy; on the bench's 70,000 x 784 blobs rows the adaptive
+   SVD of the diffusion operator (rank discovered, leading singular
+   values against ``randomized_svd_op`` at that rank, sigma_1 against
+   the power iteration) and ``get_dmap_embedding``.
 
 Before each path the kernel launch counts are set to 0 and read after it.
 The last line is one JSON object:
@@ -164,11 +180,12 @@ CDC_POINTS, CDC_PAIRS, CDC_SYM_REL, CDC_PSD_REL = 256, 1000, 1e-5, 1e-5
 # tools/torch_gather_reuse_sweep.py): the shift is their mean, the margin
 # 2.5x the spread of the S = 1 readings (0.9461-0.9480), so a stale path
 # that reads fresh (+0) or wrong neighbours fails.
-HARNESS_ARGS = ["--synthetic", str(N_ROWS), "--batch", "40", "--n-sub", "60",
+HARNESS_BASE = ["--synthetic", str(N_ROWS), "--batch", "40", "--n-sub", "60",
                 "--schedule", "none", "--gather-reuse", "12", "--quality",
-                "--quality-nbng", str(QUALITY_NBNG), "--quality-fraction",
-                str(QUALITY_FRACTION), "--quality-radius-compat", "0",
                 "--json", "--out", "none", "--device", "cuda"]
+HARNESS_ARGS = HARNESS_BASE + [
+    "--quality-nbng", str(QUALITY_NBNG), "--quality-fraction",
+    str(QUALITY_FRACTION), "--quality-radius-compat", "0"]
 HARNESS_GATHER_REUSE = 12
 HARNESS_FRAC_SHIFT, HARNESS_FRAC_ABS = 0.0242, 0.005
 # phase 12: the JAX package on the CPU, embed(**bench.KNOB_EMBED) on the
@@ -178,6 +195,25 @@ HARNESS_FRAC_SHIFT, HARNESS_FRAC_ABS = 0.0242, 0.005
 JAX_KNOB_NO_MATCH = {"n_blocks": 63_099, "row_major": 60_031,
                      "parallel_kicks": 61_086, "gather_reuse": 63_661}
 NEIGHBOURHOOD_K, NEIGHBOURHOOD_REL = 200, 1e-6
+# phases 4, 11, 13: the quality radius through the certified grid; this
+# many of the evaluated rows held bit-equal to knn_search_brute's columns
+RADIUS_CHECK_ROWS = 2_000
+# phase 13: the full fraction against phase 4's sampled reading of the
+# same embedding: 5x the binomial sd of a 55,000-row sample at the
+# readings' ~0.947 (0.00096), a fifth of the stale gather's +0.024
+FULL_FRAC_ABS = 0.005
+# phase 11's third run: the harness's quality defaults, its fraction
+# min(1, 200,000 / n) and the embed's seed 0
+HARNESS_TAIL_NBNG, HARNESS_TAIL_COMPAT = 100, 250
+HARNESS_TAIL_FRACTION, HARNESS_SEED = min(1.0, 200_000 / N_ROWS), 0
+# phase 14: the adaptive SVD of the bench blobs' diffusion operator at
+# time ADAPTIVE_TIME (the Laplacian applied that many times): at time 1
+# the one-pass adaptive finder cannot resolve the kernel's slow bulk
+# (10,000 blobs rows on the CPU: rank runs to 128, leading values 36-40%
+# low); at time 32 it found rank 16 and its 10 cluster modes within
+# 2.3e-5 of randomized_svd_op (PERF.md section 6)
+ADAPTIVE_TIME, ADAPTIVE_LEAD, ADAPTIVE_REL = 32, 10, 1e-3
+STATS_CPU_REL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -684,7 +720,206 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: recall@{KNN_K} {recall} < {min_recall}")
     if purity < MIN_PURITY:
         raise AssertionError(f"{tag}: label purity {purity} < {MIN_PURITY}")
-    return launches, info
+    return launches, info, y
+
+
+def rows_bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Same shape and the same f32 bits in every entry."""
+    return got.shape == want.shape and bool(torch.equal(got, want))
+
+
+def frac_within_band(full: float, sampled: float) -> bool:
+    """Phase 13: the full fraction's frac_without_match against phase 4's
+    sampled reading of the same embedding."""
+    return abs(full - sampled) <= FULL_FRAC_ABS
+
+
+def singular_values_agree(s, ref) -> float:
+    """Largest relative difference of the leading ADAPTIVE_LEAD values."""
+    s, ref = s[:ADAPTIVE_LEAD], ref[:ADAPTIVE_LEAD]
+    return float(((s - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+
+
+def _spread(ids: torch.Tensor) -> torch.Tensor:
+    """RADIUS_CHECK_ROWS positions spread evenly over ``ids``."""
+    return torch.linspace(0, ids.shape[0] - 1, RADIUS_CHECK_ROWS,
+                          device=ids.device).round().to(torch.int64)
+
+
+def _radius_vs_brute(tag, y, rows, radius, k, cols):
+    """The radius columns ``radius`` (r, len(cols)) of the evaluated rows
+    ``rows`` against ``knn_search_brute``'s on the card, bit for bit.
+    Returns the brute search's seconds."""
+    from annembed_tpu_torch.knn.brute import knn_search_brute
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sd = knn_search_brute(y[rows], y, k=k)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    want = sd[:, list(cols)]
+    equal = rows_bit_equal(radius, want)
+    n_diff = int((radius != want).any(1).sum()) if radius.shape == \
+        want.shape else rows.shape[0]
+    log(f"{tag}: radius columns {list(cols)} of {rows.shape[0]} rows vs "
+        f"knn_search_brute (k={k}, {brute_s:.3f} s, "
+        f"{1e3 * brute_s / rows.shape[0]:.3f} ms a row): "
+        f"{'bit-equal' if equal else f'{n_diff} rows differ'}")
+    if not equal:
+        raise AssertionError(f"{tag}: grid radius differs from brute on "
+                             f"{n_diff} rows")
+    return brute_s
+
+
+def _log_search(tag, rec):
+    per_row = 1e3 * rec["seconds"] / max(rec["queries"], 1)
+    log(f"{tag}: radius search {json.dumps(rec)} ({per_row:.4f} ms a row)")
+    if rec["route"] != "grid":
+        raise AssertionError(f"{tag}: radius search took the "
+                             f"{rec['route']} route, not the grid")
+
+
+def phase_main_quality(at, y, graph, main_quality, search):
+    """Phase 4's sampled quality estimate (``search``: its radius search
+    record from the main path's run) again on the same embedding and
+    graph: the same summary, and 2,000 of its rows' radii bit-equal to
+    the brute search."""
+    _log_search("main path quality", search)
+    est = at.quality_estimate(graph, y, nbng=QUALITY_NBNG,
+                              sample_fraction=QUALITY_FRACTION, seed=SEED)
+    again = est.summary()
+    rel = {k: abs(again[k] - v) / max(abs(v), 1e-30)
+           for k, v in main_quality.items()}
+    log(f"main path quality: the estimate again, largest relative "
+        f"difference {max(rel.values()):.3e}")
+    if again.keys() != main_quality.keys() or max(rel.values()) > 1e-6 or \
+            again["nb_without_match"] != main_quality["nb_without_match"]:
+        raise AssertionError("the quality estimate differs from the main "
+                             "path's")
+    ids = torch.from_numpy(est.sample_ids).to(y.device, torch.int64)
+    pick = _spread(ids)
+    _radius_vs_brute("main path quality", y, ids[pick],
+                     est.radius[pick, None], QUALITY_NBNG + 1,
+                     (QUALITY_NBNG,))
+
+
+def phase_full_quality(at, y, graph, frac_sampled):
+    """Phase 13: the full-fraction quality estimate of phase 4's 11M
+    embedding at nbng 50, through the certified grid."""
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    top1_l2.launches = 0
+    t0 = time.perf_counter()
+    est = at.quality_estimate(graph, y, nbng=QUALITY_NBNG,
+                              radius_k=QUALITY_NBNG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    frac = est.frac_without_match
+    log(f"full quality: n={N_ROWS} nbng={QUALITY_NBNG} wall={wall:.2f} s "
+        f"peak_mem={peak:.2f} GiB top1_l2 launches={top1_l2.launches}; "
+        f"{json.dumps(est.summary())}")
+    _log_search("full quality", est.radius_search)
+    log(f"full quality: frac_without_match {frac} vs phase 4's sampled "
+        f"{frac_sampled} ({frac - frac_sampled:+.5f}, band "
+        f"+-{FULL_FRAC_ABS})")
+    if est.nb_sampled != N_ROWS or not bool(torch.isfinite(est.radius)
+                                            .all()):
+        raise AssertionError("full quality: not every row evaluated, or "
+                             "a radius non-finite")
+    ids = torch.arange(N_ROWS, device=y.device)
+    pick = _spread(ids)
+    brute_s = _radius_vs_brute("full quality", y, ids[pick],
+                               est.radius[pick, None], QUALITY_NBNG + 1,
+                               (QUALITY_NBNG,))
+    search = est.radius_search
+    fallback_s = search["n_fallback"] * brute_s / RADIUS_CHECK_ROWS
+    log(f"full quality: the {search['n_fallback']} fallback rows at the "
+        f"brute rate above take ~{fallback_s:.1f} s of the search's "
+        f"{search['seconds']:.1f} s")
+    if not frac_within_band(frac, frac_sampled):
+        raise AssertionError(f"full quality: frac_without_match {frac} not "
+                             f"within {FULL_FRAC_ABS} of the sampled "
+                             f"{frac_sampled}")
+
+
+def phase_a3_rest(at, graph):
+    """Phase 14: the statistics of phase 4's 11M graph on the card
+    against its CPU copy; the adaptive SVD, the power iteration and the
+    legacy initialization on the bench's blobs rows."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.graph.kgraph import KGraph, kgraph_stats
+    from annembed_tpu_torch.graph.proba import (NodeParams, proba_telemetry,
+                                                to_proba_edges)
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    from annembed_tpu_torch.linalg.rsvd import (
+        estimate_first_singular_value, randomized_svd_adaptive,
+        randomized_svd_op)
+    from annembed_tpu_torch.spectral.diffmaps import get_dmap_embedding
+    nodes = to_proba_edges(graph, scale_rho=0.75)
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        g = KGraph(indices=graph.indices.to(dev), dists=graph.dists.to(dev))
+        p = NodeParams(scale=nodes.scale.to(dev), probas=nodes.probas.to(dev))
+        t0 = time.perf_counter()
+        stats[dev] = {**kgraph_stats(g), **proba_telemetry(p)}
+        log(f"graph stats ({dev}): {graph.indices.shape[0]} x "
+            f"{graph.indices.shape[1]} in {time.perf_counter() - t0:.2f} s "
+            f"{json.dumps(stats[dev])}")
+        del g, p
+    rel = {k: abs(v - stats["cpu"][k]) / max(abs(stats["cpu"][k]), 1e-30)
+           for k, v in stats["cuda"].items()}
+    worst = max(rel, key=rel.get)
+    log(f"graph stats: card vs CPU, largest relative difference "
+        f"{rel[worst]:.3e} ({worst})")
+    if stats["cuda"].keys() != stats["cpu"].keys() or \
+            rel[worst] > STATS_CPU_REL:
+        raise AssertionError(f"graph stats on the card differ from the CPU "
+                             f"copy's: {worst} {rel[worst]:.3e}")
+    del nodes
+
+    x = torch.from_numpy(synthetic_blobs(bench.N, bench.D, 42)
+                         .astype(np.float32)).to("cuda")
+    g = at.build_kgraph(x, bench.KNBN)
+    lap = at.DiffusionMaps(at.DiffusionParams()).laplacian_from_kgraph(g)
+    lap_mm = lap.matmat()
+
+    def diffusion(v):
+        for _ in range(ADAPTIVE_TIME):
+            v = lap_mm(v)
+        return v
+
+    n = bench.N
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ad = randomized_svd_adaptive(diffusion, diffusion, (n, n))
+    torch.cuda.synchronize()
+    t_ad = time.perf_counter() - t0
+    rank = int((ad.s > 0).sum())
+    t0 = time.perf_counter()
+    fixed = randomized_svd_op(diffusion, diffusion, (n, n), rank=rank)
+    s1 = float(estimate_first_singular_value(diffusion, diffusion, n))
+    torch.cuda.synchronize()
+    t_fixed = time.perf_counter() - t0
+    worst = singular_values_agree(ad.s, fixed.s)
+    s1_rel = abs(s1 - float(fixed.s[0])) / float(fixed.s[0])
+    log(f"adaptive svd: {n} x {n} diffusion operator at time "
+        f"{ADAPTIVE_TIME}, rank {rank} discovered in {t_ad:.2f} s; leading "
+        f"{ADAPTIVE_LEAD} values {ad.s[:ADAPTIVE_LEAD].tolist()} vs "
+        f"randomized_svd_op at rank {rank} {fixed.s[:ADAPTIVE_LEAD].tolist()}"
+        f": largest relative difference {worst:.3e}; power iteration sigma_1 "
+        f"{s1} ({s1_rel:.3e}); fixed rank and power iteration {t_fixed:.2f} s")
+    if worst > ADAPTIVE_REL or s1_rel > ADAPTIVE_REL:
+        raise AssertionError(f"adaptive svd: {worst:.3e} or sigma_1 "
+                             f"{s1_rel:.3e} > {ADAPTIVE_REL}")
+    t0 = time.perf_counter()
+    y = get_dmap_embedding(g, to_proba_edges(g).probas, 2)
+    torch.cuda.synchronize()
+    log(f"get_dmap_embedding: {tuple(y.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if y.shape != (n, 2) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"get_dmap_embedding: {tuple(y.shape)} or "
+                             "non-finite")
 
 
 def phase_parts(at, x):
@@ -774,27 +1009,61 @@ def _run_harness(args):
     return json.loads(proc.stdout.strip().splitlines()[-1]), port, wall
 
 
+def _resumed(port, rec) -> bool:
+    """Both caches loaded; no build, no optimize, no kernel."""
+    return (set(port["checkpoints"]) == {"graph_load_s", "embedding_load_s"}
+            and "first_step" not in rec and "optimize_time" not in rec
+            and port["top1_l2_launches"] == 0)
+
+
+def phase_harness_tail(y, rec, port):
+    """Phase 11's third run: the quality tail alone at the harness's
+    defaults, its radius search through the grid; 2,000 of its rows
+    searched again by the grid and by brute on the loaded embedding."""
+    from annembed_tpu_torch.estimators.quality import quality_sample_ids
+    from annembed_tpu_torch.knn.radius import grid_radius_search
+    search = port["quality_radius"]
+    _log_search("harness tail", search)
+    log(f"harness tail: wall {rec['wall_s']} s (PR 6: ~81 s of quality); "
+        f"quality {json.dumps(rec['quality'])}")
+    if not _resumed(port, rec):
+        raise AssertionError("the harness tail did not resume from both "
+                             "caches")
+    ids = torch.from_numpy(quality_sample_ids(
+        N_ROWS, HARNESS_TAIL_FRACTION, HARNESS_SEED)).to("cuda", torch.int64)
+    if search["queries"] != ids.shape[0]:
+        raise AssertionError(f"harness tail: {search['queries']} queries, "
+                             f"not the {ids.shape[0]} of its sample")
+    rows = ids[_spread(ids)]
+    cols = (HARNESS_TAIL_NBNG, HARNESS_TAIL_COMPAT)
+    sd, _ = grid_radius_search(y, rows, search["k"], keep_cols=cols)
+    _radius_vs_brute("harness tail", y, rows, sd, search["k"], cols)
+
+
 def phase_harness(labels, frac_s1):
     """Phase 11: the Higgs harness at full size with the stale gather,
     its caches written, then the same command again, which must load the
-    projection and the embedding and run only the quality tail.  Returns
-    the first run's top-1 launches."""
+    projection and the embedding and run only the quality tail, then the
+    tail at the harness's own quality defaults.  Returns the first run's
+    top-1 launches."""
     from annembed_tpu_torch.io.checkpoint import load_embedding
     from annembed_tpu_torch.io.synthetic import label_purity
     with tempfile.TemporaryDirectory() as tmp:
         # the harness saves its projection right after the build, as
         # the JAX harness does (graph_cache_eager)
-        args = HARNESS_ARGS + ["--data-cache", f"{tmp}/x.npy",
-                               "--graph-cache", f"{tmp}/proj.npz",
-                               "--embed-cache", f"{tmp}/emb.npz"]
+        caches = ["--data-cache", f"{tmp}/x.npy", "--graph-cache",
+                  f"{tmp}/proj.npz", "--embed-cache", f"{tmp}/emb.npz"]
         runs = []
-        for tag in ("harness", "harness resumed"):
-            rec, port, wall = _run_harness(args)
+        for tag, args in (("harness", HARNESS_ARGS),
+                          ("harness resumed", HARNESS_ARGS),
+                          ("harness tail", HARNESS_BASE)):
+            rec, port, wall = _run_harness(args + caches)
             runs.append((rec, port))
             log(f"{tag}: process {wall:.2f} s; port {json.dumps(port)}")
             log(f"{tag}: {json.dumps(rec)}")
         y = torch.from_numpy(load_embedding(f"{tmp}/emb.npz")).to("cuda")
-    (rec, port), (again, port2) = runs
+    (rec, port), (again, port2), (tail, port3) = runs
+    phase_harness_tail(y, tail, port3)
     first = rec["first_step"]
     frac = rec["quality"]["frac_without_match"]
     purity = label_purity(y, labels, k=KNN_K)
@@ -817,10 +1086,7 @@ def phase_harness(labels, frac_s1):
                              f"gather_reuse {HARNESS_GATHER_REUSE}")
     if rec[f"recall@{KNN_K}"] < MIN_RECALL_IVF or purity < MIN_PURITY:
         raise AssertionError("harness recall or purity below its limit")
-    # the resume: both caches loaded, no build, no optimize, no kernel
-    if (set(port2["checkpoints"]) != {"graph_load_s", "embedding_load_s"}
-            or "first_step" in again or "optimize_time" in again
-            or port2["top1_l2_launches"] != 0):
+    if not _resumed(port2, again):
         raise AssertionError("the rerun did not resume from both caches")
     if again["quality"] != rec["quality"]:
         raise AssertionError("the resumed quality differs from the first "
@@ -987,13 +1253,31 @@ def main() -> int:
     # phase 4: the main path at full size, then the exact hierarchical
     # path at a smaller depth, then the parts of the IVF build
     t0 = time.perf_counter()
-    launches, main_info = _hierarchical(
+    launches, main_info, y = _hierarchical(
         at, x, labels, MAIN_BATCHES, HIGGS_KNN, MIN_RECALL_IVF, "main path",
         with_quality=True, quality_fraction=QUALITY_FRACTION,
         quality_nbng=QUALITY_NBNG)
+    search = at.quality_estimate.last_radius_search
     log(f"phase 4 (main path): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    exact_launches, _ = _hierarchical(
+    y = torch.from_numpy(y).to(dev)
+    graph = main_info.pop("kgraph")
+    frac_s1 = main_info["quality"]["frac_without_match"]
+    phase_main_quality(at, y, graph, main_info["quality"], search)
+    log(f"phase 4 (quality radius held to brute): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_full_quality(at, y, graph, frac_s1)
+    log(f"phase 13 (full-fraction quality): {time.perf_counter() - t0:.2f} s")
+    del y
+    t0 = time.perf_counter()
+    phase_a3_rest(at, graph)
+    log(f"phase 14 (graph statistics, adaptive SVD, legacy init): "
+        f"{time.perf_counter() - t0:.2f} s")
+    del graph, main_info
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exact_launches, _, _ = _hierarchical(
         at, x[:EXACT_ROWS].contiguous(), labels[:EXACT_ROWS], EXACT_BATCHES,
         dict(knbn=KNN_K), MIN_RECALL, "exact path")
     log(f"phase 4 (exact path): {time.perf_counter() - t0:.2f} s")
@@ -1016,8 +1300,7 @@ def main() -> int:
     del blobs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    harness_launches = phase_harness(
-        labels, main_info["quality"]["frac_without_match"])
+    harness_launches = phase_harness(labels, frac_s1)
     log(f"phase 11 (harness): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     phase_knobs_io(at)

@@ -47,3 +47,37 @@ def test_phase5_rejects_the_sampling_readings(no_match, mean_matched):
 def test_phase12_references_cover_every_knob():
     from annembed_tpu_torch import bench
     assert set(cs.JAX_KNOB_NO_MATCH) == set(bench.DENSE_KNOBS)
+
+
+# phases 4, 11, 13: the grid's radius rows against brute, bit for bit
+def test_radius_rows_must_be_bit_equal():
+    import torch
+    a = torch.linspace(0.1, 3.0, 2_000)[:, None]
+    assert cs.rows_bit_equal(a, a.clone())
+    b = a.clone()
+    b[1_234, 0] = torch.nextafter(b[1_234, 0], torch.tensor(10.0))
+    assert not cs.rows_bit_equal(a, b)            # one ulp on one row
+    assert not cs.rows_bit_equal(a, a[:1_999])
+
+
+# phase 13: the full fraction within the band of phase 4's sampled
+# reading; 3 binomial sd of 55,000 rows at ~0.947 is 0.0029, the stale
+# gather's shift at S = 12 (+0.0235-0.0247, PERF.md section 5) is not
+@pytest.mark.parametrize("full, ok", [
+    (0.9474, True), (0.9474 + 0.0029, True), (0.9474 - 0.0029, True),
+    (0.97087, False), (0.9474 + 0.0235, False), (0.9474 - 0.0060, False)])
+def test_phase13_band(full, ok):
+    assert cs.frac_within_band(full, 0.9474) is ok
+
+
+# phase 14: the adaptive SVD's cluster modes against the fixed-rank SVD
+# (10,000 blobs rows on the CPU: 2.3e-5 at diffusion time 32, 2.6e-4 at
+# 16; 0.36-0.40 at time 1, where the one-pass finder misses the bulk)
+@pytest.mark.parametrize("rel, ok", [(2.3e-5, True), (2.6e-4, True),
+                                     (2e-3, False), (0.36, False)])
+def test_phase14_adaptive_agreement(rel, ok):
+    import torch
+    ref = torch.ones(cs.ADAPTIVE_LEAD)
+    s = ref.clone()
+    s[-1] = 1.0 + rel
+    assert (cs.singular_values_agree(s, ref) <= cs.ADAPTIVE_REL) is ok
