@@ -2,10 +2,18 @@
 reference src/python.rs:109 and :201).
 
 Same keyword surface as the JAX package, csv paths or arrays in, plus an
-explicit ``device``.  The multi-device knobs (``mesh``, ``n_devices``)
-raise ``NotImplementedError`` naming their ROADMAP item, before any data
-is moved to the device or any graph is built.  Graphs above
-``KnnParams.brute_force_limit`` rows take the IVF + NN-descent build.
+explicit ``device``.  Graphs above ``KnnParams.brute_force_limit`` rows
+take the IVF + NN-descent build.
+
+The multi-device path (parallel/): ``mesh`` (``parallel.sharded.
+make_mesh`` in a process group the caller set up, torchrun style) runs
+the call in place on every rank: graph build, spectral SVD, dense
+optimizer and the full-fraction quality radius sharded, every rank
+returning the same embedding, rank 0 alone writing files.
+``n_devices`` > 1 without a mesh spawns that many ranks
+(``parallel.launch``, one card each, or gloo on the CPU for
+``device="cpu"``), hands them the rows through a memory-mapped file and
+returns rank 0's result; it never falls back to fewer cards.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .device import resolve_device
+from .device import disable_tf32, resolve_device
 from .estimators.hdbscan import hdbscan
 from .io import checkpoint as ckpt
 from .io.csv_io import (get_toembed_from_csv, write_csv_array2,
@@ -50,11 +58,45 @@ def _finalize_info(info: dict) -> dict:
     return out
 
 
-def _refuse(**flags) -> None:
-    for name, on in flags.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet "
-                                      "(ROADMAP A14)")
+def _call_rank(mesh, fn, path: str, kwargs: dict):
+    """One spawned rank of ``embed`` / ``dmap_embed(n_devices=)``: the
+    call on the memory-mapped rows under this rank's mesh; rank 0's
+    result is returned to the caller."""
+    from .parallel.launch import load_rows
+    out = fn(load_rows(path), mesh=mesh, **kwargs)
+    return out if mesh.rank == 0 else None
+
+
+def _on_ranks(fn, x: np.ndarray, n_devices: int, device, kwargs: dict):
+    """``fn(x, **kwargs)`` on ``n_devices`` spawned ranks; rank 0's
+    (embedding, info), a graph in ``info`` moved to ``device``."""
+    import tempfile
+    from .parallel.launch import check_devices, run_on_ranks, save_rows
+    dev = check_devices(n_devices, device)
+    with tempfile.TemporaryDirectory(prefix="annembed_rows_") as tmp:
+        path = save_rows(x, tmp)
+        y, info = run_on_ranks(_call_rank, n_devices,
+                               (fn, path, kwargs), device=dev)[0]
+    if "kgraph" in info:
+        g = info["kgraph"]
+        info["kgraph"] = type(g)(indices=g.indices.to(dev),
+                                 dists=g.dists.to(dev))
+    return y, info
+
+
+def _check_mesh(mesh) -> None:
+    from .parallel.sharded import Mesh
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.sharded.Mesh (make_mesh), "
+                        f"not {type(mesh).__name__}")
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The mesh's device, else ``device`` checked."""
+    if mesh is None:
+        return resolve_device(device)
+    disable_tf32()
+    return mesh.device
 
 
 def _check_graph_options(distance: str, knn_params: KnnParams) -> None:
@@ -130,10 +172,14 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     saves the embedding after the optimize phase; an existing one is
     loaded instead and the run goes straight to the quality tail (a
     shape other than (n, dim) raises).  With either cache,
-    ``info["checkpoints"]`` holds the seconds of each load and save."""
-    _refuse(mesh=mesh is not None, n_devices=n_devices > 1)
+    ``info["checkpoints"]`` holds the seconds of each load and save.
+
+    ``n_devices`` > 1 or a ``mesh`` run the multi-device path (see the
+    module docstring); ``info["n_devices"]`` then counts the ranks of
+    the dense optimizer."""
     if cluster == 1:
         raise ValueError("cluster is HDBSCAN*'s min_cluster_size: >= 2")
+    _check_mesh(mesh)
     if params is None:
         params = EmbedderParams()
     # the CLI-surface kwargs always win; the caller's object is copied
@@ -146,7 +192,22 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     check_embedder_params(params)
     _check_graph_options(distance, knn_params)
     x_host = _load(csv, delim, quality_sampling, knn_params)
-    dev = resolve_device(device)
+    if mesh is None and n_devices > 1:
+        return _on_ranks(embed, x_host, n_devices, device, dict(
+            outfile=outfile, dim=dim, batch=batch, nbsample=nbsample,
+            layer=layer, hierarchy_fraction=hierarchy_fraction, scale=scale,
+            distance=distance, nbng=nbng, knn_params=knn_params,
+            params=params, with_quality=with_quality, seed=seed,
+            graph_cache=graph_cache, graph_cache_eager=graph_cache_eager,
+            embed_cache=embed_cache, quality_fraction=quality_fraction,
+            quality_nbng=quality_nbng,
+            quality_radius_compat=quality_radius_compat,
+            return_graph=return_graph, cluster=cluster))
+    dev = _mesh_device(mesh, device)
+    # under a mesh every rank runs the call; rank 0 alone writes files
+    writer = mesh is None or mesh.rank == 0
+    if not writer:
+        outfile = None
     x = _to_device(x_host, dev)
     del x_host
 
@@ -162,8 +223,12 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     elif layer > 0:
         graph = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
                                  distance=distance, params=knn_params,
-                                 seed=seed)
+                                 seed=seed, mesh=mesh)
         extra["graph_build_phases"] = dict(graph.timings)
+    elif mesh is not None:
+        from .parallel.sharded_knn import sharded_build_kgraph
+        graph = sharded_build_kgraph(x, nbng, mesh, distance=distance,
+                                     params=knn_params)
     else:
         graph = build_kgraph(x, nbng, distance=distance, params=knn_params)
     _sync(dev)
@@ -171,6 +236,8 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
         saves["graph_load_s"] = time.perf_counter() - t0
 
     def save_graph():
+        if not writer:
+            return
         t = time.perf_counter()
         (ckpt.save_projection if layer > 0 else ckpt.save_kgraph)(
             graph_cache, graph)
@@ -182,9 +249,9 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     if layer > 0:
         extra["projection_distance_quantiles"] = \
             graph.projection_distance_quantiles()
-        emb = Embedder.from_hkgraph(graph, params)
+        emb = Embedder.from_hkgraph(graph, params, mesh=mesh)
     else:
-        emb = Embedder.new(graph, params)
+        emb = Embedder.new(graph, params, mesh=mesh)
     y_host = None
     if embed_cache and ckpt.checkpoint_exists(embed_cache):
         # resume straight into the quality tail
@@ -200,7 +267,7 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
         logger.info("loaded embedding checkpoint from %s", embed_cache)
     else:
         y_dev = emb.embed()
-        if embed_cache:
+        if embed_cache and writer:
             t = time.perf_counter()
             y_host = y_dev.cpu().numpy()
             ckpt.save_embedding(embed_cache, y_host)
@@ -264,13 +331,23 @@ def dmap_embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     bin/dmapembed.rs:390-432) on ``device``.  With layer > 0 only the
     subsample graph is embedded (dmapembed.rs:415-422) and ``info``
     carries its ``sample_ids``.  ``svd_n_iter`` = subspace iterations
-    of the spectral SVD (the reference's 5, graphlaplace.rs:115)."""
-    _refuse(mesh=mesh is not None, n_devices=n_devices > 1)
+    of the spectral SVD (the reference's 5, graphlaplace.rs:115).
+    ``n_devices`` > 1 or a ``mesh`` shard the graph build and the
+    spectral SVD (see the module docstring)."""
+    _check_mesh(mesh)
     if knn_params is None:
         knn_params = KnnParams(knbn=nbng, distance=distance)
     _check_graph_options(distance, knn_params)
     x_host = _load(csv, delim, quality_sampling, knn_params)
-    dev = resolve_device(device)
+    if mesh is None and n_devices > 1:
+        return _on_ranks(dmap_embed, x_host, n_devices, device, dict(
+            outfile=outfile, dim=dim, alfa=alfa, beta=beta,
+            time_param=time_param, distance=distance, nbng=nbng,
+            layer=layer, hierarchy_fraction=hierarchy_fraction,
+            knn_params=knn_params, seed=seed, svd_n_iter=svd_n_iter))
+    dev = _mesh_device(mesh, device)
+    if mesh is not None and mesh.rank != 0:
+        outfile = None
     x = _to_device(x_host, dev)
     n = x_host.shape[0]
     del x_host
@@ -281,15 +358,20 @@ def dmap_embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     if layer > 0:
         proj = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
                                 distance=distance, params=knn_params,
-                                seed=seed)
-        y = dm.embed_from_kgraph(proj.small_graph).cpu().numpy()
+                                seed=seed, mesh=mesh)
+        y = dm.embed_from_kgraph(proj.small_graph, mesh=mesh).cpu().numpy()
         info = {"nb_embedded": int(proj.nb_small),
                 "sample_ids": proj.sample_ids.cpu().numpy()}
     else:
-        g = build_kgraph(x, nbng, distance=distance, params=knn_params)
+        if mesh is None:
+            g = build_kgraph(x, nbng, distance=distance, params=knn_params)
+        else:
+            from .parallel.sharded_knn import sharded_build_kgraph
+            g = sharded_build_kgraph(x, nbng, mesh, distance=distance,
+                                     params=knn_params)
         _sync(dev)
         t_g = time.perf_counter() - t0
-        y = dm.embed_from_kgraph(g).cpu().numpy()
+        y = dm.embed_from_kgraph(g, mesh=mesh).cpu().numpy()
         info = {"nb_embedded": int(n),
                 "graph_build_time": round(t_g, 1),
                 "dmap_time": round(time.perf_counter() - t0 - t_g, 1)}

@@ -78,9 +78,11 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_once(x: torch.Tensor):
+def run_once(x: torch.Tensor, mesh=None):
     """bench.py::run_once on ``x`` (n, d) float32 on its device.
-    Returns (embedding (n, 2), graph, phase seconds)."""
+    Returns (embedding (n, 2), graph, phase seconds).  With ``mesh``
+    (parallel/sharded.py) the graph build, the spectral SVD and the
+    dense optimizer run sharded over its ranks."""
     from .graph.kgraph import KGraph
     from .graph.proba import to_proba_edges
     from .knn.brute import knn_graph_brute
@@ -92,7 +94,12 @@ def run_once(x: torch.Tensor):
     dev = x.device
     t = {}
     t0 = time.perf_counter()
-    idx, dist = knn_graph_brute(x, KNBN, block_rows=BLOCK_ROWS)
+    if mesh is None:
+        idx, dist = knn_graph_brute(x, KNBN, block_rows=BLOCK_ROWS)
+    else:
+        from .parallel.sharded_knn import sharded_knn_graph_brute
+        idx, dist = sharded_knn_graph_brute(x, KNBN, mesh,
+                                            block_rows=BLOCK_ROWS)
     _sync(dev)
     t["knn"] = time.perf_counter() - t0
     g = KGraph(indices=idx, dists=dist)
@@ -100,7 +107,7 @@ def run_once(x: torch.Tensor):
     t0 = time.perf_counter()
     dm = DiffusionMaps(params=DiffusionParams(
         asked_dim=DIM, alfa=0.5, beta=-0.1, t=5.0, gnbn=12, svd_n_iter=1))
-    init = set_data_box(dm.embed_from_kgraph(g), 10.0)
+    init = set_data_box(dm.embed_from_kgraph(g, mesh=mesh), 10.0)
     _sync(dev)
     t["dmap_init"] = time.perf_counter() - t0
 
@@ -114,7 +121,11 @@ def run_once(x: torch.Tensor):
                             nb_grad_batch=sum(b for b, _ in SCHEDULE),
                             n_sub_schedule=SCHEDULE,
                             dense_neighbor_exclusion=False)
-    y, _ = run_dense_optimization(init, g, npar, params, n_sub=15)
+    if mesh is None:
+        y, _ = run_dense_optimization(init, g, npar, params, n_sub=15)
+    else:
+        from .parallel.sharded import sharded_dense_optimize
+        y, _ = sharded_dense_optimize(init, g, npar, params, mesh)
     _sync(dev)
     t["optimize"] = time.perf_counter() - t0
     t["total"] = sum(t.values())
@@ -151,19 +162,24 @@ def sampling_record(info: dict, prefix: str) -> dict:
     return {prefix + k: v for k, v in out.items()}
 
 
-def run(n: int = N, device="cuda"):
+def run(n: int = N, device="cuda", mesh=None):
     """The whole bench.  Returns (record, timed-pass phase seconds, blobs
-    embedding, manifold-row phase seconds)."""
-    from .device import resolve_device
+    embedding, manifold-row phase seconds).  ``mesh`` runs both rows'
+    pipelines sharded over its ranks, on its device."""
+    from .device import disable_tf32, resolve_device
     from .io.synthetic import synthetic_blobs, synthetic_clustered_manifold
     from .knn.api import sampled_exact_recall
 
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh.device
+        disable_tf32()
     x = torch.from_numpy(synthetic_blobs(n, D, 42)).to(dev, torch.float32)
     if dev.type == "cuda":
-        _, _, t_warm = run_once(x)
+        _, _, t_warm = run_once(x, mesh)
         _note(f"warm pass: {t_warm}")
-    y, g, t = run_once(x)
+    y, g, t = run_once(x, mesh)
     _note(f"phases: {t}")
     wall = t["total"]
     rec = {"metric": "mnist70k_e2e_wall_s", "value": wall, "unit": "s",
@@ -177,7 +193,7 @@ def run(n: int = N, device="cuda"):
     del x, g
     xm = torch.from_numpy(synthetic_clustered_manifold(n, D)).to(
         dev, torch.float32)
-    ym, gm, tm = run_once(xm)
+    ym, gm, tm = run_once(xm, mesh)
     _note(f"manifold phases: {tm}")
     rec.update(conservation(gm, ym, "manifold_"))
     return rec, t, y, tm

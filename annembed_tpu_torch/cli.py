@@ -43,7 +43,8 @@ def _common_args(p: argparse.ArgumentParser) -> None:
                    help="NN-descent candidate sampling fraction")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--n-devices", type=int, default=0,
-                   help=">1 shards the pipeline (not ported: ROADMAP A14)")
+                   help=">1 shards the pipeline over that many ranks, one "
+                        "card each (gloo ranks with --device cpu)")
     p.add_argument("--device", default="cuda",
                    help="torch device the pipeline runs on")
     p.add_argument("-v", "--verbose", action="store_true")

@@ -118,11 +118,14 @@ def edge_lengths_rows(y_rows: torch.Tensor, y: torch.Tensor,
 
 
 def _ivf_radius(y: torch.Tensor, cols: Sequence[int],
-                knn_params: Optional[KnnParams]) -> torch.Tensor:
+                knn_params: Optional[KnnParams], mesh=None) -> torch.Tensor:
     """(len(cols), n) approximate embedded radii through the IVF graph
     rebuild: the full-fraction route above ``brute_force_limit`` at
-    d != 2.  ``cols`` count neighbours with self included in column 0,
-    as ``_radius_columns`` does, so column c reads the self-excluded
+    d != 2, and under a ``mesh`` the full fraction's route at any d,
+    through the sharded build (exact brute up to the limit; the grid
+    quantizer at d = 2, as the JAX package rebuilds there).  ``cols``
+    count neighbours with self included in column 0, as
+    ``_radius_columns`` does, so column c reads the self-excluded
     graph's column c - 1.
 
     NN-descent is skipped: at nbng ~ 50 its candidate set is (2 nbng)^2
@@ -138,18 +141,29 @@ def _ivf_radius(y: torch.Tensor, cols: Sequence[int],
     else:
         knn_params = dataclasses.replace(knn_params, knbn=k_search,
                                          refine_rounds=0, dtype="float32")
-    emb_graph = build_kgraph(y, k_search, distance="DistL2",
-                             params=knn_params)
+    if y.shape[1] == 2:
+        knn_params = dataclasses.replace(knn_params, quantizer="grid")
+    if mesh is None:
+        emb_graph = build_kgraph(y, k_search, distance="DistL2",
+                                 params=knn_params)
+    else:
+        from ..parallel.sharded_knn import sharded_build_kgraph
+        emb_graph = sharded_build_kgraph(y, k_search, mesh,
+                                         distance="DistL2",
+                                         params=knn_params)
     # only the radius columns outlive the graph
     return emb_graph.dists[:, [c - 1 for c in cols]].T.contiguous()
 
 
-def _radius_columns(y, sub, cols, knn_params: Optional[KnnParams]):
+def _radius_columns(y, sub, cols, knn_params: Optional[KnnParams],
+                    mesh=None):
     """(len(cols), m) embedded distances at the given columns of a
     self-including search of the evaluated rows (``sub``, an int64
     tensor on y's device, None for all) against the whole cloud, and
     the route's record.  Exact, except for the full fraction above
-    ``brute_force_limit`` at d != 2 (``_ivf_radius``)."""
+    ``brute_force_limit`` at d != 2 (``_ivf_radius``).  Under a
+    ``mesh`` the full fraction is searched by the sharded graph rebuild;
+    a sample takes the single-device routes on every rank."""
     n, d = y.shape
     k = max(cols) + 1
     m = n if sub is None else sub.shape[0]
@@ -157,7 +171,11 @@ def _radius_columns(y, sub, cols, knn_params: Optional[KnnParams]):
              else KnnParams().brute_force_limit)
     t0 = time.perf_counter()
     rec = {"queries": m, "k": k}
-    if d == 2 and n > GRID_MIN_ROWS:
+    if mesh is not None and sub is None:
+        rec.update(route="ivf" if n > limit else "brute",
+                   n_devices=mesh.size)
+        radii = _ivf_radius(y, cols, knn_params, mesh)
+    elif d == 2 and n > GRID_MIN_ROWS:
         ids = torch.arange(n, device=y.device) if sub is None else sub
         sd, n_fb = grid_radius_search(y, ids, k, keep_cols=cols)
         g, cap_cell = grid_shape(n, k)
@@ -212,7 +230,8 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
                      knn_params: KnnParams | None = None,
                      sample_fraction: float = 1.0, seed: int = 0,
                      radius_k: int | None = None,
-                     radius_k_compat: int | None = None) -> QualityEstimate:
+                     radius_k_compat: int | None = None,
+                     mesh=None) -> QualityEstimate:
     """The neighbourhood-conservation summary of embedding ``y`` (n, d)
     of graph ``g`` (a tensor, on the graph's device, or an array).
 
@@ -221,7 +240,9 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
     holds the sample's exact fraction).  ``radius_k`` (default nbng) is
     the embedded neighbour whose distance is a node's radius;
     ``radius_k_compat`` reports the headline counts at a second radius
-    from the same search (``QualityEstimate.compat``)."""
+    from the same search (``QualityEstimate.compat``).  ``mesh``
+    (parallel/sharded.py) shards the full fraction's radius search;
+    every rank holds the same estimate."""
     disable_tf32()
     n, k = g.indices.shape
     dev = g.indices.device
@@ -239,7 +260,7 @@ def quality_estimate(g: KGraph, y, nbng: int = 50,
     else:
         m = n
         lengths = edge_lengths_rows(y, y, g.indices)
-    radii, search = _radius_columns(y, sub, cols, knn_params)
+    radii, search = _radius_columns(y, sub, cols, knn_params, mesh)
     radius = radii[0]
 
     head, ratios, ratio_q = _counts(lengths, radius, n, _QS)

@@ -39,12 +39,21 @@ class GraphLaplacian:
         return coo_to_dense(self.rows, self.cols, self.vals, self.n)
 
     def do_svd(self, asked_dim: int, n_iter: int = 5, omega=None,
-               generator: Optional[torch.Generator] = None) -> SvdResult:
+               generator: Optional[torch.Generator] = None,
+               mesh=None) -> SvdResult:
         """Exact SVD up to FULL_SVD_SIZE_LIMIT nodes, randomized above
         (graphlaplace.rs:127; rank max(asked_dim, 20), :115).  ``omega``
-        (n, rank + 10) may inject the Gaussian test matrix."""
+        (n, rank + 10) may inject the Gaussian test matrix.  With
+        ``mesh`` the randomized path's COO SpMM is sharded over the ranks
+        (parallel/sharded_svd.py)."""
         if self.n <= FULL_SVD_SIZE_LIMIT:
             res = full_svd_dense(self.to_dense())
+        elif mesh is not None:
+            from ..parallel.sharded_svd import sharded_randomized_svd_coo
+            res = sharded_randomized_svd_coo(
+                self.rows, self.cols, self.vals, n=self.n,
+                rank=max(asked_dim, 20), mesh=mesh, n_iter=n_iter,
+                n_oversample=10, omega=omega, generator=generator)
         else:
             res = randomized_svd_coo(self.rows, self.cols, self.vals,
                                      n=self.n, rank=max(asked_dim, 20),

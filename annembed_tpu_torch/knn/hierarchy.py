@@ -63,19 +63,49 @@ def draw_sample_ids(n: int, m: int, generator: torch.Generator) -> torch.Tensor:
     return torch.sort(torch.randperm(n, generator=generator)[:m]).values
 
 
+def _nearest(q: torch.Tensor, xs: torch.Tensor, distance: str):
+    """(index, distance) of each query row's nearest sampled point."""
+    if distance == "DistL2":
+        return top1_l2(q, xs)
+    idx1, dist1 = knn_search_brute(q, xs, k=1, distance=distance)
+    return idx1[:, 0], dist1[:, 0]
+
+
+def _project(x: torch.Tensor, xs: torch.Tensor, distance: str, mesh):
+    """The projection's search; under a mesh rank r searches rows
+    [r s, (r + 1) s) and the padded blocks are all-gathered."""
+    if mesh is None:
+        return _nearest(x, xs, distance)
+    n = x.shape[0]
+    s = -(-n // mesh.size)
+    r0 = min(mesh.rank * s, n)
+    r1 = min(r0 + s, n)
+    idx = torch.zeros(s, dtype=torch.int64, device=x.device)
+    dist = torch.zeros(s, dtype=torch.float32, device=x.device)
+    if r1 > r0:
+        i, d = _nearest(x[r0:r1], xs, distance)
+        idx[:r1 - r0], dist[:r1 - r0] = i, d
+    return mesh.all_gather_rows(idx)[:n], mesh.all_gather_rows(dist)[:n]
+
+
 def build_projection(x: torch.Tensor, knbn: int,
                      sample_fraction: float = 0.05,
                      distance: str = "DistL2",
                      params: Optional[KnnParams] = None, seed: int = 0,
                      sample_ids: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> KGraphProjection:
+                     generator: Optional[torch.Generator] = None,
+                     mesh=None) -> KGraphProjection:
     """Small graph, large graph and projection (kgproj.rs:59).
 
     ``sample_ids`` (sorted, distinct) may be given; otherwise they are
     drawn from ``generator`` (default: a CPU generator seeded with
-    ``seed``)."""
+    ``seed``, the same draw on every rank).  ``mesh``
+    (parallel/sharded.py) routes both graph builds through the sharded
+    joins, and each rank projects its own block of rows (the kernel on
+    every rank) before one all-gather: the same projection, replicated."""
     x = x.to(torch.float32).contiguous()
+    if mesh is not None:
+        x = x.to(mesh.device)
     n = x.shape[0]
     m = max(knbn + 1, int(round(n * sample_fraction)))
     if sample_ids is None:
@@ -92,18 +122,20 @@ def build_projection(x: torch.Tensor, knbn: int,
     for name, rows in (("small_graph", xs), ("large_graph", x)):
         inner = PhaseTimer()
         with timer.phase(name) as sync:
-            graphs[name] = build_kgraph(rows, knbn, distance=distance,
-                                        params=params, timer=inner)
+            if mesh is None:
+                graphs[name] = build_kgraph(rows, knbn, distance=distance,
+                                            params=params, timer=inner)
+            else:
+                from ..parallel.sharded_knn import sharded_build_kgraph
+                graphs[name] = sharded_build_kgraph(
+                    rows, knbn, mesh, distance=distance, params=params,
+                    timer=inner)
             sync.append(graphs[name].dists)
         timer.timings.update({f"{name}/{phase}": s
                               for phase, s in inner.timings.items()})
     small, large = graphs["small_graph"], graphs["large_graph"]
     with timer.phase("projection") as sync:
-        if distance == "DistL2":
-            idx1, dist1 = top1_l2(x, xs)
-        else:
-            idx1, dist1 = knn_search_brute(x, xs, k=1, distance=distance)
-            idx1, dist1 = idx1[:, 0], dist1[:, 0]
+        idx1, dist1 = _project(x, xs, distance, mesh)
         # sampled points project to themselves at distance 0
         in_sample_pos = torch.zeros(n, dtype=torch.int64, device=x.device)
         in_sample_pos[sample_ids] = torch.arange(m, device=x.device)

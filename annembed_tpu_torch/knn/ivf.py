@@ -222,28 +222,39 @@ def _batches(qn: np.ndarray, ctot: np.ndarray, k: int, panel_bytes: int):
 
 
 def _join_all(xp: torch.Tensor, qn: torch.Tensor, ctot: torch.Tensor,
-              batch_fn, k: int, dtype: str, distance: str, panel_bytes: int):
+              batch_fn, k: int, dtype: str, distance: str, panel_bytes: int,
+              mesh=None):
     """Run the join over every virtual row in byte-bounded batches and
-    scatter each batch's results into the (n, k) outputs at once."""
+    scatter each batch's results into the (n, k) outputs at once.  With
+    ``mesh`` (parallel/sharded.py), rank r runs every size-th batch of
+    the one batch plan (built from replicated counts, so every rank
+    issues the same collectives) and the ranks' outputs, zero where a
+    rank ran no batch, are summed: each row is some batch's member."""
     n = xp.shape[0] - 1
     dev = xp.device
     idx = torch.zeros((n + 1, k), dtype=torch.int32, device=dev)
     dist = torch.zeros((n + 1, k), dtype=torch.float32, device=dev)
-    for rows, q_max, w in _batches(qn.cpu().numpy(), ctot.cpu().numpy(), k,
-                                   panel_bytes):
+    plan = list(_batches(qn.cpu().numpy(), ctot.cpu().numpy(), k,
+                         panel_bytes))
+    if mesh is not None:
+        plan = plan[mesh.rank::mesh.size]
+    for rows, q_max, w in plan:
         rows_t = torch.as_tensor(rows, device=dev)
         members, it, dt = _join_rows(xp, *batch_fn(rows_t, q_max, w), k,
                                      dtype, distance)
         members = members.to(torch.int64)     # invalid -> the drop row n
         idx[members] = it
         dist[members] = dt
-    return idx[:n], dist[:n].clamp_min_(0.0)
+    idx, dist = idx[:n], dist[:n]
+    if mesh is not None:
+        mesh.all_reduce_sum(idx, dist)
+    return idx, dist.clamp_min_(0.0)
 
 
 def _ivf_join_sorted(xs_pad, qstarts, qparents, starts, counts, cell_nbrs,
                      k: int, qcap: int, cap: int, dtype: str,
                      distance: str = "DistL2",
-                     panel_bytes: int = PANEL_BYTES):
+                     panel_bytes: int = PANEL_BYTES, mesh=None):
     """Cell-sorted local join.  ``xs_pad`` is the corpus reordered by
     cell id plus one zero row; queries and candidates are ranges of
     sorted positions.  ``starts`` / ``counts`` may carry one extra
@@ -269,12 +280,12 @@ def _ivf_join_sorted(xs_pad, qstarts, qparents, starts, counts, cell_nbrs,
                 torch.where(c_valid, cpos, n), c_valid)
 
     return _join_all(xs_pad, qn, cc_all.sum(1), batch, k, dtype, distance,
-                     panel_bytes)
+                     panel_bytes, mesh)
 
 
 def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs, k: int,
               dtype: str, distance: str = "DistL2",
-              panel_bytes: int = PANEL_BYTES):
+              panel_bytes: int = PANEL_BYTES, mesh=None):
     """Id-table local join: for each virtual query row, the exact kNN of
     its members within the probed cells' candidate lists.  ``x_pad`` is
     (n + 1, d) with a zero pad row.  Returns (idx, dist) of shape (n, k)
@@ -293,7 +304,7 @@ def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs, k: int,
                 torch.where(c_valid, cand.to(torch.int64), n), c_valid)
 
     return _join_all(x_pad, qn, cc_all.sum(1), batch, k, dtype, distance,
-                     panel_bytes)
+                     panel_bytes, mesh)
 
 
 def _strip_grid_assign(xq: torch.Tensor, g: int):
@@ -432,7 +443,7 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
                   panel_bytes: int = PANEL_BYTES,
                   kmeans_sample_ids: Optional[torch.Tensor] = None,
                   kmeans_init_ids: Optional[torch.Tensor] = None,
-                  timer: Optional[PhaseTimer] = None):
+                  timer: Optional[PhaseTimer] = None, mesh=None):
     """Approximate kNN graph via the IVF local join.  Returns (idx (n, k)
     int32, dist (n, k) f32), ascending.  ``timer`` receives the wall
     seconds of the phases ``ivf_quantize`` and ``ivf_join``.
@@ -444,7 +455,10 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
     ``dtype="bfloat16"`` casts the operands of the L2 / cosine panel's
     cross product; DistL2 distances are exact f32 either way (rerank).
     ``panel_bytes`` bounds one batch's f32 distance panel; the results do
-    not depend on it, nor on ``layout``."""
+    not depend on it, nor on ``layout``.  ``mesh`` (parallel/sharded.py,
+    through ``sharded_knn_graph_ivf``) splits the join's batches over
+    the ranks; every rank fits the quantizer and rank 0's cells are
+    broadcast, so the tables are replicated bit for bit."""
     check_distance(distance)
     check_knobs(dtype, topk_recall)
     x = x.to(torch.float32)
@@ -462,6 +476,9 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
         cells, cell_nbrs, nlist, cap, qcap, pad_cell = _quantize_cells(
             xq, k, nlist, nprobe, quantizer, seed, sample_size, kmeans_iter,
             sample_ids=kmeans_sample_ids, init_ids=kmeans_init_ids)
+        if mesh is not None:
+            cells, cell_nbrs = cells.contiguous(), cell_nbrs.contiguous()
+            mesh.broadcast(cells, cell_nbrs)
         sync.append(cells)
     del xq
     logger.info("ivf: n=%d nlist=%d cap=%d qcap=%d nprobe=%d", n, nlist, cap,
@@ -470,18 +487,19 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
         if layout == "sorted":
             idx, dist = _knn_graph_ivf_sorted(
                 x, cells, cell_nbrs, pad_cell, k, nlist, cap, qcap, dtype,
-                distance, panel_bytes)
+                distance, panel_bytes, mesh)
         else:
             idx, dist = _knn_graph_ivf_gathered(
                 x, cells, cell_nbrs, pad_cell, k, nlist, cap, qcap, dtype,
-                distance, panel_bytes)
+                distance, panel_bytes, mesh)
         sync.append(dist)
     return idx, dist
 
 
 def _knn_graph_ivf_gathered(x, cells, cell_nbrs, pad_cell: bool, k: int,
                             nlist: int, cap: int, qcap: int, dtype: str,
-                            distance: str, panel_bytes: int = PANEL_BYTES):
+                            distance: str, panel_bytes: int = PANEL_BYTES,
+                            mesh=None):
     """The id-table layout: tables, join, fix-up."""
     n, d = x.shape
     virt_table, virt_parent, cand_table, _ = _ivf_tables_impl(
@@ -492,13 +510,14 @@ def _knn_graph_ivf_gathered(x, cells, cell_nbrs, pad_cell: bool, k: int,
             (1, cap), n, dtype=torch.int32, device=x.device)])
     x_pad = torch.cat([x, x.new_zeros((1, d))])
     idx, dist = _ivf_join(x_pad, virt_table, virt_parent, cand_table,
-                          cell_nbrs, k, dtype, distance, panel_bytes)
+                          cell_nbrs, k, dtype, distance, panel_bytes, mesh)
     return _fixup_underfilled(idx, dist, n)
 
 
 def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, k: int,
                           nlist: int, cap: int, qcap: int, dtype: str,
-                          distance: str, panel_bytes: int = PANEL_BYTES):
+                          distance: str, panel_bytes: int = PANEL_BYTES,
+                          mesh=None):
     """The cell-sorted layout: the join runs in sorted-position
     space; one final relabeling pass returns original ids and rows."""
     n, d = x.shape
@@ -511,7 +530,7 @@ def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, k: int,
     xs_pad = torch.cat([x[order32], x.new_zeros((1, d))])  # one-time reorder
     idx_s, dist_s = _ivf_join_sorted(xs_pad, qstarts, virt_parent, starts,
                                      counts, cell_nbrs, k, qcap, cap, dtype,
-                                     distance, panel_bytes)
+                                     distance, panel_bytes, mesh)
     del xs_pad
     idx_s, dist_s = _fixup_underfilled(idx_s, dist_s, n)
     # sorted-position space -> original labels: row r holds point

@@ -2,8 +2,11 @@
 annembed_tpu/knn/kmeans.py).
 
 Assignment is one L2 panel per row block and an ``argmin`` (ties to the
-first centroid); the update is a segment mean by ``index_add_``.  The
-random-point initialization is an argument (``init_ids``), drawn from a
+first centroid); the update is a segment mean, a ``segment_reduce`` of
+the rows sorted by cell (on the CPU the same sums as ``index_add_``; on
+the card ``index_add_`` adds with atomics, whose order, and so whose last
+bits, vary from run to run and from rank to rank).  The random-point
+initialization is an argument (``init_ids``), drawn from a
 ``torch.Generator`` when absent.
 """
 
@@ -33,6 +36,14 @@ def assign_to_centroids(x: torch.Tensor,
     return cells
 
 
+def _segment_sum(x: torch.Tensor, cells: torch.Tensor,
+                 n_clusters: int) -> torch.Tensor:
+    """(n_clusters, d) sums of the rows of each cell, bit-reproducible."""
+    order = torch.argsort(cells, stable=True)
+    counts = torch.bincount(cells, minlength=n_clusters)
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
+
+
 def kmeans_fit(x: torch.Tensor, n_clusters: int, n_iter: int = 10,
                seed: int = 0, init_ids: Optional[torch.Tensor] = None):
     """Lloyd iterations from a random-point init.  Empty clusters keep
@@ -49,8 +60,7 @@ def kmeans_fit(x: torch.Tensor, n_clusters: int, n_iter: int = 10,
     centroids = x[init_ids.to(x.device)]
     for _ in range(n_iter):
         cells = assign_to_centroids(x, centroids).to(torch.int64)
-        sums = torch.zeros((n_clusters, d), dtype=torch.float32,
-                           device=x.device).index_add_(0, cells, x)
+        sums = _segment_sum(x, cells, n_clusters)
         counts = torch.bincount(cells, minlength=n_clusters).to(torch.float32)
         new = sums / counts.clamp_min(1.0)[:, None]
         centroids = torch.where(counts[:, None] > 0, new, centroids)

@@ -142,7 +142,7 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
                      seed: int = 0,
                      uniforms: Optional[Sequence[torch.Tensor]] = None,
                      slab_bytes: int = PANEL_BYTES,
-                     timer: Optional[PhaseTimer] = None):
+                     timer: Optional[PhaseTimer] = None, mesh=None):
     """Refine (indices, dists) over ``n_rounds``, in any of the five
     metrics.  Returns (indices (n, k) int32, dists (n, k) f32).
 
@@ -156,7 +156,13 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
     generator on x's device seeded ``seed + 1013``.  ``slab_bytes``
     bounds one slab's (rows, C, d) f32 gather; results do not depend on
     it.  ``timer`` receives the wall seconds of the phases
-    ``nndescent_round_<i>`` and ``nndescent_rerank``."""
+    ``nndescent_round_<i>`` and ``nndescent_rerank``.
+
+    ``mesh`` (parallel/sharded.py, through ``sharded_nndescent_refine``)
+    gives rank r every size-th slab of the one slab plan; the union
+    tables and their sampling are computed alike on every rank, and the
+    ranks' slab outputs, zero elsewhere, are summed after each round and
+    after the rerank."""
     x = x.to(torch.float32)
     n, d = x.shape
     dev = x.device
@@ -181,21 +187,43 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
         with timer.phase(f"nndescent_round_{rnd + 1}") as sync:
             indices, dists, gen = _round(
                 x_pad, indices, dists, ids, rnd, rev_capacity, s, slab,
-                distance, uniforms, gen, seed)
+                distance, uniforms, gen, seed, mesh)
             sync.append(dists)
     if score_bf16:
         with timer.phase("nndescent_rerank") as sync:
             rr_slab = max(1, slab_bytes // (12 * k * d))
-            for s0 in range(0, n, rr_slab):
+            out_i, out_d = _outputs(indices, dists, mesh)
+            for s0 in _own_slabs(n, rr_slab, mesh):
                 s1 = min(s0 + rr_slab, n)
-                indices[s0:s1], dists[s0:s1] = _exact_rerank_slab(
+                out_i[s0:s1], out_d[s0:s1] = _exact_rerank_slab(
                     x, indices[s0:s1], ids[s0:s1], distance)
+            indices, dists = _merge(out_i, out_d, mesh)
             sync.append(dists)
     return indices, dists
 
 
+def _own_slabs(n: int, slab: int, mesh):
+    """First rows of the slabs this rank runs: all of them, or every
+    size-th under a mesh."""
+    starts = range(0, n, slab)
+    return starts if mesh is None else starts[mesh.rank::mesh.size]
+
+
+def _outputs(indices, dists, mesh):
+    """A round's output tables: zero-filled under a mesh, where the
+    ranks' partial tables are summed."""
+    make = torch.empty_like if mesh is None else torch.zeros_like
+    return make(indices), make(dists)
+
+
+def _merge(out_i, out_d, mesh):
+    if mesh is not None:
+        mesh.all_reduce_sum(out_i, out_d)
+    return out_i, out_d
+
+
 def _round(x_pad, indices, dists, ids, rnd: int, rev_capacity: int, s: int,
-           slab: int, distance: str, uniforms, gen, seed: int):
+           slab: int, distance: str, uniforms, gen, seed: int, mesh=None):
     """One NN-descent round over all rows, slab by slab.  Returns the new
     (indices, dists) and the generator (made at the first sampled
     round)."""
@@ -212,11 +240,11 @@ def _round(x_pad, indices, dists, ids, rnd: int, rev_capacity: int, s: int,
             un = torch.rand(union_pp.shape, generator=gen, device=dev)
         inner_pp = _sample_union_pp(un, union_pp, s)
         del un
-    out_i = torch.empty_like(indices)
-    out_d = torch.empty_like(dists)
-    for s0 in range(0, n, slab):
+    out_i, out_d = _outputs(indices, dists, mesh)
+    for s0 in _own_slabs(n, slab, mesh):
         s1 = min(s0 + slab, n)
         out_i[s0:s1], out_d[s0:s1] = _nndescent_slab(
             x_pad, inner_pp, indices[s0:s1], dists[s0:s1], inner_pp[s0:s1],
             union_pp[s0:s1], ids[s0:s1], k, distance)
+    out_i, out_d = _merge(out_i, out_d, mesh)
     return out_i, out_d, gen

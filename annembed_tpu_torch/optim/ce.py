@@ -48,7 +48,8 @@ class EdgeSet:
     """Flattened positive edges and their sampling tables (EntropyOptim
     state, embedder.rs:936-951, minus the RwLock'd coordinates).  The
     JAX package's ``edge_cdf`` serves its sharded stratified sampler
-    only (ROADMAP A14), so it is not kept here."""
+    only; the port's (parallel/sharded.py::shard_edge_set) builds each
+    shard's own, so it is not kept here."""
 
     src: torch.Tensor             # (E,) int32
     dst: torch.Tensor             # (E,) int32

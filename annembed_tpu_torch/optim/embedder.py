@@ -16,6 +16,11 @@ Every random draw comes from a ``torch.Generator`` seeded from
 and sweep offsets from ``seed``, the random init from ``seed + 17``, the
 jitter from ``seed + 23``, the SVD test matrix from 4664397; the sampling
 optimizer's steps from ``seed`` on the embedding's device.
+
+With a ``mesh`` (parallel/sharded.py) the spectral init's SpMM and the
+dense optimizer run sharded over its ranks (every rank runs the embedder);
+the sampling optimizer runs whole on every rank, and rank 0's result is
+broadcast.
 """
 
 from __future__ import annotations
@@ -87,6 +92,9 @@ class Embedder:
     kgraph: Optional[KGraph] = None
     hkgraph: Optional[KGraphProjection] = None
     params: EmbedderParams = dataclasses.field(default_factory=EmbedderParams)
+    #: optional 1-D 'data' mesh (parallel/sharded.py): the spectral
+    #: init's SpMM and the dense optimizer run sharded over it
+    mesh: object = None
 
     initial_embedding: Optional[torch.Tensor] = None
     embedding: Optional[torch.Tensor] = None
@@ -95,13 +103,14 @@ class Embedder:
     timer: PhaseTimer = dataclasses.field(default_factory=PhaseTimer)
 
     @staticmethod
-    def new(kgraph: KGraph, params: EmbedderParams) -> "Embedder":
-        return Embedder(kgraph=kgraph, params=params)
+    def new(kgraph: KGraph, params: EmbedderParams,
+            mesh=None) -> "Embedder":
+        return Embedder(kgraph=kgraph, params=params, mesh=mesh)
 
     @staticmethod
-    def from_hkgraph(proj: KGraphProjection,
-                     params: EmbedderParams) -> "Embedder":
-        return Embedder(hkgraph=proj, params=params)
+    def from_hkgraph(proj: KGraphProjection, params: EmbedderParams,
+                     mesh=None) -> "Embedder":
+        return Embedder(hkgraph=proj, params=params, mesh=mesh)
 
     def embed(self) -> torch.Tensor:
         """Dispatch (embedder.rs:183-191)."""
@@ -117,7 +126,8 @@ class Embedder:
         one_step_embed (embedder.rs:315-325)."""
         dparams = DiffusionParams(asked_dim=dim, alfa=0.5, beta=-0.1,
                                   t=5.0, gnbn=12)
-        return DiffusionMaps(params=dparams).embed_from_kgraph(g)
+        return DiffusionMaps(params=dparams).embed_from_kgraph(
+            g, mesh=self.mesh)
 
     def _random_initial(self, n: int, dim: int, size: float,
                         device) -> torch.Tensor:
@@ -156,7 +166,8 @@ class Embedder:
         first_params = dataclasses.replace(
             p, nb_grad_batch=p.grad_factor * p.nb_grad_batch,
             grad_step=1.0, hierarchy_layer=0, n_sub_schedule=None)
-        first = Embedder(kgraph=proj.small_graph, params=first_params)
+        first = Embedder(kgraph=proj.small_graph, params=first_params,
+                         mesh=self.mesh)
         y_small = first.one_step_embed()
         self.info["first_step"] = first.info
 
@@ -197,15 +208,24 @@ class Embedder:
             if dense:
                 info = {"initial_ce": ce_value_dense(init, g, npar.probas,
                                                      npar.scale, p.b)}
-                y, dinfo = run_dense_optimization(init, g, npar, p,
-                                                  n_sub=p.n_sub,
-                                                  neg_weights=hub)
+                if self.mesh is None:
+                    y, dinfo = run_dense_optimization(init, g, npar, p,
+                                                      n_sub=p.n_sub,
+                                                      neg_weights=hub)
+                else:
+                    from ..parallel.sharded import sharded_dense_optimize
+                    y, dinfo = sharded_dense_optimize(init, g, npar, p,
+                                                      self.mesh,
+                                                      neg_weights=hub)
                 info.update(dinfo)
                 info["final_ce"] = ce_value_dense(y, g, npar.probas,
                                                   npar.scale, p.b)
             else:
                 es = build_edge_set(g, npar, hubness_weights=hub)
                 y, info = run_entropy_optimization(init, es, p)
+                if self.mesh is not None:
+                    y = y.contiguous()
+                    self.mesh.broadcast(y)
             sync.append(y)
         info["optimize_time"] = time.perf_counter() - t0
         self.info.update(info)
@@ -247,4 +267,5 @@ class Embedder:
                                 nbng=nbng, knn_params=knn_params,
                                 sample_fraction=sample_fraction,
                                 seed=self.params.seed,
-                                radius_k_compat=radius_k_compat)
+                                radius_k_compat=radius_k_compat,
+                                mesh=self.mesh)

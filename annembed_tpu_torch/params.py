@@ -3,8 +3,7 @@
 A framework-free copy of ``annembed_tpu/params.py`` (same fields, same
 defaults; tests/test_torch_params.py pins them field by field), kept
 separate because importing any ``annembed_tpu`` module imports jax.
-The multi-device knobs raise ``NotImplementedError`` at the entry
-points.  Mirrors the reference parameter surface:
+Mirrors the reference parameter surface:
   - ``EmbedderParams``  (reference: src/embedparams.rs:77-184)
   - ``DiffusionParams`` (reference: src/diffmaps.rs:72-248)
   - ``KnnParams``       (replaces the HNSW construction knobs of

@@ -144,12 +144,13 @@ class DiffusionMaps:
 
     def embed_from_laplacian(self, lap: GraphLaplacian, asked_dim: int,
                              t_opt: Optional[float], omega=None,
-                             generator: Optional[torch.Generator] = None
-                             ) -> torch.Tensor:
+                             generator: Optional[torch.Generator] = None,
+                             mesh=None) -> torch.Tensor:
         """Spectral coordinates from the top eigenvectors
-        (diffmaps.rs:1145-1243)."""
+        (diffmaps.rs:1145-1243).  ``mesh`` shards the randomized SVD's
+        SpMM over the ranks (GraphLaplacian.do_svd)."""
         svd_res = lap.do_svd(asked_dim + 15, n_iter=self.params.svd_n_iter,
-                             omega=omega, generator=generator)
+                             omega=omega, generator=generator, mesh=mesh)
         scales = lap.normed_scales
         if scales is None:
             scales = torch.ones(lap.n, dtype=torch.float32,
@@ -158,13 +159,13 @@ class DiffusionMaps:
                                 t_opt, min(asked_dim, svd_res.u.shape[1] - 1))
 
     def embed_from_kgraph(self, g: KGraph, omega=None,
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+                          generator: Optional[torch.Generator] = None,
+                          mesh=None) -> torch.Tensor:
         """Full chain (diffmaps.rs:1047-1075)."""
         lap = self.laplacian_from_kgraph(g)
         coords = self.embed_from_laplacian(lap, self.params.asked_dim,
                                            self.params.t, omega=omega,
-                                           generator=generator)
+                                           generator=generator, mesh=mesh)
         self.laplacian = lap
         return coords
 

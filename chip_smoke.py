@@ -71,7 +71,21 @@ CUDA device it exits 1 before printing any result):
    on its CPU copy; on the bench's 70,000 x 784 blobs rows the adaptive
    SVD of the diffusion operator (rank discovered, leading singular
    values against ``randomized_svd_op`` at that rank, sigma_1 against
-   the power iteration) and ``get_dmap_embedding``.
+   the power iteration) and ``get_dmap_embedding``;
+15. the sharded path (annembed_tpu_torch/parallel) on a mesh of every
+   card, W ranks over NCCL started by the package's launcher, each rank
+   calling the entry points with ``mesh=make_mesh(W)`` (so NCCL and every
+   sharded function run at W = 1 too): (a) ``embed(x, layer=1)`` on phase
+   4's 11,000,000 x 28 rows at its operating point with a sampled quality
+   estimate, held to recall, label purity, phase 4's graph outside
+   near-ties, phase 4's frac_without_match +-0.005, ranks' embeddings
+   bit-equal (a checksum all-gather) and the kernel launched on every
+   rank; (b) the bench at 70,000 x 784 (sharded brute build, SVD and
+   dense optimizer) held to phase 5's JAX constants; (c) ``dmap_embed``
+   at 70,000 x 784 against phase 6's result up to sign; (d) the
+   full-fraction quality estimate of phase 4's 300,000-row 3-D embedding
+   through the sharded IVF rebuild, within 0.001 of the single device's;
+   with W > 1, (b) once more through ``embed(n_devices=W)``.
 
 Before each path the kernel launch counts are set to 0 and read after it.
 The last line is one JSON object:
@@ -214,6 +228,14 @@ HARNESS_TAIL_FRACTION, HARNESS_SEED = min(1.0, 200_000 / N_ROWS), 0
 # 2.3e-5 of randomized_svd_op (PERF.md section 6)
 ADAPTIVE_TIME, ADAPTIVE_LEAD, ADAPTIVE_REL = 32, 10, 1e-3
 STATS_CPU_REL = 1e-6
+# phase 15: the mesh path's bands against the single device: the sampled
+# frac_without_match of the 11M embedding (the dense sweeps are not
+# bit-reproducible; phase 11's band), the full fraction of the 300k 3-D
+# embedding (the same graph rebuild, sharded), the diffusion coordinates
+# up to sign (tests/test_parallel.py::test_dmap_embed_mesh_matches_single)
+MESH_FRAC_ABS, MESH_FULL_FRAC_ABS, MESH_DMAP_ATOL = 0.005, 0.001, 5e-3
+# graph agreement outside near-ties, as the port's IVF tests define it
+MESH_GRAPH_AGREE, MESH_GRAPH_D_REL = 0.999, 1e-5
 
 
 def log(msg: str) -> None:
@@ -398,6 +420,7 @@ def phase_dmap(at):
         f"top1_l2 launches={top1_l2.launches}")
     if y.shape != (N, 2) or not np.isfinite(y).all():
         raise AssertionError(f"dmap_embed output {y.shape} or non-finite")
+    return y
 
 
 def _run_cli(args):
@@ -723,6 +746,36 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     return launches, info, y
 
 
+def rank_checksum(t: torch.Tensor) -> int:
+    """An order-sensitive checksum of a float32 tensor's bits: the int32
+    words weighted by their position, summed mod 2^64 (integer sums do
+    not depend on the reduction order)."""
+    bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    pos = torch.arange(1, bits.numel() + 1, device=t.device) % 1_000_003
+    return int((bits * pos).sum())
+
+
+def checksums_agree(sums) -> bool:
+    """Every rank's checksum equals rank 0's."""
+    return len(sums) > 0 and all(c == sums[0] for c in sums)
+
+
+def within_band(value: float, ref: float, band: float) -> bool:
+    return abs(value - ref) <= band
+
+
+def graph_agreement(got_i, got_d, want_i, want_d):
+    """(share of equal ids on the columns outside near-ties, rows that
+    differ anywhere, largest relative distance difference where the ids
+    agree) of two (n, k) graphs on the host."""
+    clear = torch.from_numpy(_clear_ties(want_d.numpy()))
+    same = got_i == want_i
+    agree = float(same[clear].float().mean()) if bool(clear.any()) else 1.0
+    rows = int((~same).any(1).sum())
+    rel = ((got_d - want_d).abs() / want_d.abs().clamp_min(1e-30))[same]
+    return agree, rows, float(rel.max()) if rel.numel() else 0.0
+
+
 def rows_bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Same shape and the same f32 bits in every entry."""
     return got.shape == want.shape and bool(torch.equal(got, want))
@@ -731,7 +784,7 @@ def rows_bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
 def frac_within_band(full: float, sampled: float) -> bool:
     """Phase 13: the full fraction's frac_without_match against phase 4's
     sampled reading of the same embedding."""
-    return abs(full - sampled) <= FULL_FRAC_ABS
+    return within_band(full, sampled, FULL_FRAC_ABS)
 
 
 def singular_values_agree(s, ref) -> float:
@@ -923,7 +976,9 @@ def phase_a3_rest(at, graph):
 
 
 def phase_parts(at, x):
-    """The parts of the IVF build against exact search on the card."""
+    """The parts of the IVF build against exact search on the card.
+    Returns the 3-D embedding, its graph (on the host) and the IVF
+    route's full-fraction frac_without_match, for phase 15."""
     from annembed_tpu_torch.graph.kgraph import KGraph
     from annembed_tpu_torch.knn.api import build_kgraph, sampled_exact_recall
     from annembed_tpu_torch.knn.ivf import knn_graph_ivf
@@ -978,7 +1033,7 @@ def phase_parts(at, x):
             knn_params=at.KnnParams(knbn=KNN_K, brute_force_limit=limit))
         torch.cuda.synchronize()
         out[name] = (q.nb_without_match, q.mean_nb_matched,
-                     time.perf_counter() - t0)
+                     time.perf_counter() - t0, q.frac_without_match)
     rel = abs(out["ivf"][0] - out["exact"][0]) / max(out["exact"][0], 1)
     log(f"parts: quality at full fraction, {QUALITY_ROWS} x 3, nbng "
         f"{QUALITY_NBNG}: IVF radius no_match {out['ivf'][0]} mean_matched "
@@ -988,6 +1043,8 @@ def phase_parts(at, x):
     if rel > QUALITY_NO_MATCH_REL:
         raise AssertionError(f"quality no_match through the IVF radius "
                              f"differs by {rel:.4f} > {QUALITY_NO_MATCH_REL}")
+    g3 = info["kgraph"]
+    return y3.cpu(), (g3.indices.cpu(), g3.dists.cpu()), out["ivf"][3]
 
 
 def _run_harness(args):
@@ -1185,6 +1242,195 @@ def phase_knobs_io(at):
                              f"{NO_MATCH_REL}: {off}")
 
 
+def _mesh_rank(mesh, rows_path, y3, g3):
+    """Phase 15 on one rank: (a)-(d) under ``mesh``, each part timed,
+    launch counts from 0, the peak memory of the rank; the results the
+    parent checks come back from rank 0, the checksums from all."""
+    import annembed_tpu_torch as at
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.parallel.launch import load_rows
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (a) the hierarchical path at phase 4's operating point
+    top1_l2.launches = 0
+    t0 = time.perf_counter()
+    y, info = at.embed(
+        load_rows(rows_path), batch=MAIN_BATCHES,
+        knn_params=at.KnnParams(**HIGGS_KNN),
+        params=at.EmbedderParams(grad_factor=5, hubness_weighting=True),
+        with_quality=True, quality_fraction=QUALITY_FRACTION,
+        quality_nbng=QUALITY_NBNG, mesh=mesh,
+        **{k: v for k, v in HIGGS_EMBED.items() if k != "device"})
+    out["a_wall"] = time.perf_counter() - t0
+    out["a_launches"] = top1_l2.launches
+    out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    mine = torch.tensor([rank_checksum(torch.from_numpy(y).to(dev))],
+                        dtype=torch.int64, device=dev)
+    out["a_checksums"] = mesh.all_gather_rows(mine).tolist()
+    g = info.pop("kgraph")
+    if mesh.rank == 0:
+        out.update(a_y=y, a_info=info,
+                   a_graph=(g.indices.cpu(), g.dists.cpu()))
+    del y, g
+    torch.cuda.empty_cache()
+    # (b) the bench's one-step workload, sharded
+    t0 = time.perf_counter()
+    rec, t, yb, _ = bench.run(bench.N, mesh=mesh)
+    out["b_wall"] = time.perf_counter() - t0
+    out["b_rec"], out["b_phases"] = rec, t
+    out["b_finite"] = bool(torch.isfinite(yb).all()) and \
+        tuple(yb.shape) == (bench.N, 2)
+    # (c) dmap_embed
+    t0 = time.perf_counter()
+    yd, _ = at.dmap_embed(synthetic_blobs(bench.N, bench.D, 42), dim=2,
+                          mesh=mesh)
+    out["c_wall"] = time.perf_counter() - t0
+    if mesh.rank == 0:
+        out["c_y"] = yd
+    # (d) the full-fraction quality estimate through the sharded rebuild
+    t0 = time.perf_counter()
+    q = at.quality_estimate(at.KGraph(indices=g3[0].to(dev),
+                                      dists=g3[1].to(dev)),
+                            y3.to(dev), nbng=QUALITY_NBNG,
+                            knn_params=at.KnnParams(knbn=KNN_K), mesh=mesh)
+    out["d_wall"] = time.perf_counter() - t0
+    out["d_frac"], out["d_search"] = q.frac_without_match, q.radius_search
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
+               y_dmap):
+    """Phase 15: the sharded path on every card, held to the single
+    device's readings of phases 4, 5, 6 and 4's parts.  Returns the
+    ranks' top1_l2 launch counts in (a)."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.io.synthetic import label_purity
+    from annembed_tpu_torch.knn.api import sampled_exact_recall
+    from annembed_tpu_torch.parallel.launch import load_rows, run_on_ranks
+    w = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = run_on_ranks(_mesh_rank, w, (rows_path, y3, g3), device="cuda")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    info = r0["a_info"]
+    first = info["first_step"]
+    rest = info["total_time"] - (info["graph_build_time"]
+                                 + first["init_time"]
+                                 + first["optimize_time"]
+                                 + info["optimize_time"])
+    log(f"mesh: W={w} ranks over NCCL, {wall:.2f} s with the launch; per "
+        f"rank (a) {[round(r['a_wall'], 2) for r in ranks]} s, (b) "
+        f"{[round(r['b_wall'], 2) for r in ranks]} s, (c) "
+        f"{[round(r['c_wall'], 2) for r in ranks]} s, (d) "
+        f"{[round(r['d_wall'], 2) for r in ranks]} s; peak memory (a) "
+        f"{[round(r['a_peak_gib'], 2) for r in ranks]} GiB, all "
+        f"{[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    log(f"mesh (a): n={N_ROWS} W={w} graph_build="
+        f"{info['graph_build_time']:.2f} s first_init={first['init_time']:.2f}"
+        f" s first_optimize={first['optimize_time']:.2f} s large_optimize="
+        f"{info['optimize_time']:.2f} s ({info['sweeps']} sweeps, "
+        f"{1e3 * info['optimize_time'] / max(info['sweeps'], 1):.3f} ms a "
+        f"sweep) rest={rest:.2f} s total={info['total_time']:.2f} s; "
+        f"n_devices={info['n_devices']}")
+    log(f"mesh (a): graph build phases (s) "
+        f"{json.dumps(info['graph_build_phases'])}")
+    y = torch.from_numpy(r0["a_y"]).to("cuda")
+    x = torch.from_numpy(np.ascontiguousarray(load_rows(rows_path))).to("cuda")
+    gi, gd = r0["a_graph"]
+    recall = sampled_exact_recall(x, at.KGraph(indices=gi.to("cuda"),
+                                               dists=gd.to("cuda")),
+                                  sample=2000)
+    del x
+    purity = label_purity(y, labels, k=KNN_K)
+    agree, rows, d_rel = graph_agreement(gi, gd, *graph4)
+    frac = info["quality"]["frac_without_match"]
+    launches = [r["a_launches"] for r in ranks]
+    sums = [r["a_checksums"] for r in ranks]
+    log(f"mesh (a): recall@{KNN_K}={recall:.4f} purity={purity:.4f}; large "
+        f"graph vs phase 4's: {agree:.6f} of the clear columns equal, {rows} "
+        f"rows differ, largest relative distance difference {d_rel:.3e}; "
+        f"frac_without_match {frac} vs phase 4's {frac_s1} ({frac - frac_s1:+.5f}"
+        f", band +-{MESH_FRAC_ABS}); embedding checksums {sums[0]} (every "
+        f"rank's gather equal: {all(s == sums[0] for s in sums)}); top1_l2 "
+        f"launches {launches}")
+    if tuple(y.shape) != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
+        raise AssertionError("mesh (a): embedding shape or non-finite")
+    if recall < MIN_RECALL_IVF or purity < MIN_PURITY:
+        raise AssertionError(f"mesh (a): recall {recall} or purity {purity}")
+    if agree < MESH_GRAPH_AGREE or d_rel > MESH_GRAPH_D_REL:
+        raise AssertionError(f"mesh (a): graph differs from phase 4's "
+                             f"({agree}, {d_rel})")
+    if not checksums_agree(sums[0]) or any(s != sums[0] for s in sums):
+        raise AssertionError(f"mesh (a): ranks' embeddings differ {sums}")
+    if not within_band(frac, frac_s1, MESH_FRAC_ABS):
+        raise AssertionError(f"mesh (a): frac_without_match {frac} vs "
+                             f"{frac_s1}")
+    if min(launches) < 1 or info["n_devices"] != w:
+        raise AssertionError(f"mesh (a): launches {launches}, n_devices "
+                             f"{info['n_devices']}")
+    # (b)
+    rec = r0["b_rec"]
+    rel = abs(rec["no_match"] - JAX_NO_MATCH) / JAX_NO_MATCH
+    diff = abs(rec["manifold_mean_matched"] - JAX_MANIFOLD_MEAN_MATCHED)
+    log(f"mesh (b): bench phases (s) {json.dumps(r0['b_phases'])}; "
+        f"{json.dumps(rec)}; no_match vs JAX {rel:.4f} relative, manifold "
+        f"mean_matched {diff:.4f}")
+    if not all(r["b_finite"] for r in ranks) or \
+            rec["recall"] < BENCH_MIN_RECALL or rel > NO_MATCH_REL or \
+            diff > MANIFOLD_MATCHED_ABS:
+        raise AssertionError("mesh (b): the sharded bench is off phase 5's "
+                             "JAX constants")
+    # (c)
+    yd = r0["c_y"]
+    sign = np.sign((yd * y_dmap).sum(0))
+    dmap_err = float(np.abs(yd * sign - y_dmap).max())
+    log(f"mesh (c): dmap_embed {yd.shape} vs phase 6's, up to sign: max "
+        f"abs difference {dmap_err:.3e} (coordinates up to "
+        f"{float(np.abs(y_dmap).max()):.3e})")
+    if yd.shape != y_dmap.shape or dmap_err > MESH_DMAP_ATOL:
+        raise AssertionError(f"mesh (c): dmap differs by {dmap_err}")
+    # (d)
+    fracs = [r["d_frac"] for r in ranks]
+    log(f"mesh (d): full-fraction quality of the {QUALITY_ROWS} x 3 "
+        f"embedding, radius {json.dumps(r0['d_search'])}: "
+        f"frac_without_match {fracs} vs the single device's {frac3}")
+    if r0["d_search"]["route"] != "ivf" or any(
+            not within_band(f, frac3, MESH_FULL_FRAC_ABS) for f in fracs):
+        raise AssertionError("mesh (d): the sharded rebuild's estimate is "
+                             "off the single device's")
+    if w > 1:
+        phase_mesh_entry(at, w)
+    return launches
+
+
+def phase_mesh_entry(at, w):
+    """Phase 15 with W > 1: the bench's blobs rows through
+    ``embed(n_devices=W)`` from this process (the package spawns the
+    ranks), at the bench's schedule."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    x = synthetic_blobs(bench.N, bench.D, 42)
+    t0 = time.perf_counter()
+    y, info = at.embed(
+        x, dim=2, nbng=bench.KNBN, batch=sum(b for b, _ in bench.SCHEDULE),
+        params=at.EmbedderParams(n_sub_schedule=bench.SCHEDULE,
+                                 dense_neighbor_exclusion=False),
+        with_quality=True, quality_nbng=50, quality_radius_compat=125,
+        n_devices=w, device="cuda")
+    log(f"mesh entry: embed(n_devices={w}) on the bench's blobs rows in "
+        f"{time.perf_counter() - t0:.2f} s (spawn included); n_devices "
+        f"{info['n_devices']}, {info['sweeps']} sweeps; quality (not held) "
+        f"{json.dumps(info['quality'])}")
+    if info["n_devices"] != w or y.shape != (bench.N, 2) or \
+            not np.isfinite(y).all():
+        raise AssertionError("mesh entry: wrong n_devices, shape or values")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1207,6 +1453,7 @@ def main() -> int:
                                                  synthetic_higgs, zscore)
     from annembed_tpu_torch.knn.hierarchy import draw_sample_ids
     from annembed_tpu_torch.ops import _build
+    from annembed_tpu_torch.parallel.launch import save_rows
     disable_tf32()
 
     # phase 2: build the kernel from this checkout's sources
@@ -1219,7 +1466,11 @@ def main() -> int:
     # phase 3: kernel against twin and library at the path's shapes
     t0 = time.perf_counter()
     x_np, labels = synthetic_higgs(N_ROWS, seed=SEED, return_labels=True)
-    x = torch.from_numpy(zscore(x_np)).to(dev)
+    x_np = zscore(x_np)
+    # phase 15's ranks memory-map the rows from a file
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    rows_path = save_rows(x_np, work.name)
+    x = torch.from_numpy(x_np).to(dev)
     del x_np
     log(f"data: {N_ROWS} x {x.shape[1]} Higgs-shaped rows in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1262,6 +1513,8 @@ def main() -> int:
     t0 = time.perf_counter()
     y = torch.from_numpy(y).to(dev)
     graph = main_info.pop("kgraph")
+    # phase 15 holds its large graph to this one
+    graph4 = (graph.indices.cpu(), graph.dists.cpu())
     frac_s1 = main_info["quality"]["frac_without_match"]
     phase_main_quality(at, y, graph, main_info["quality"], search)
     log(f"phase 4 (quality radius held to brute): "
@@ -1282,13 +1535,13 @@ def main() -> int:
         dict(knbn=KNN_K), MIN_RECALL, "exact path")
     log(f"phase 4 (exact path): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_parts(at, x)
+    y3, g3, frac3 = phase_parts(at, x)
     log(f"phase 4 (parts): {time.perf_counter() - t0:.2f} s")
     del x
     torch.cuda.empty_cache()
 
     phase_bench()
-    phase_dmap(at)
+    y_dmap = phase_dmap(at)
     phase_cli()
     phase_metrics(at)
     t0 = time.perf_counter()
@@ -1305,6 +1558,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_knobs_io(at)
     log(f"phase 12 (dense knobs, IO): {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh(at, rows_path, labels, graph4, frac_s1, y3,
+                               g3, frac3, y_dmap)
+    work.cleanup()
+    log(f"phase 15 (mesh of {torch.cuda.device_count()}): "
+        f"{time.perf_counter() - t0:.2f} s")
     log(f"chip_smoke: {time.perf_counter() - t_start:.2f} s")
 
     # the top-level numbers are those of the main path's shape (phase 4's
@@ -1323,6 +1583,7 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "exact_path_launches": exact_launches,
         "harness_launches": harness_launches,
+        "mesh_launches_by_rank": mesh_launches,
         "shapes": [dict(s, launches=path_launches[s["shape"]])
                    for s in shapes]}]}))
     log(json.dumps({"ok": True, "device": {

@@ -81,3 +81,53 @@ def test_phase14_adaptive_agreement(rel, ok):
     s = ref.clone()
     s[-1] = 1.0 + rel
     assert (cs.singular_values_agree(s, ref) <= cs.ADAPTIVE_REL) is ok
+
+
+# phase 15: the ranks' embeddings held bit-equal through a checksum
+# all-gather; any one-bit change or a swap of two rows must show
+def test_phase15_checksum_sees_one_bit_and_row_order():
+    import torch
+    y = torch.randn(1_000, 2, generator=torch.Generator().manual_seed(0))
+    c = cs.rank_checksum(y)
+    assert c == cs.rank_checksum(y.clone())
+    flip = y.clone()
+    flip.view(torch.int32)[417, 1] ^= 1             # the last mantissa bit
+    swap = y.clone()
+    swap[[3, 900]] = swap[[900, 3]]
+    for other in (flip, swap):
+        assert cs.rank_checksum(other) != c
+    assert cs.checksums_agree([c, c, c, c])
+    assert not cs.checksums_agree([c, c, cs.rank_checksum(flip), c])
+    assert not cs.checksums_agree([])
+
+
+# phase 15 (a): the sampled frac_without_match of the mesh run within
+# +-0.005 of phase 4's (phase 11's band: 2.5x the spread of the S = 1
+# readings 0.9461-0.9480, PERF.md section 5); (d): the full fraction of
+# the same graph rebuild within 0.001
+@pytest.mark.parametrize("frac, ok", [
+    (0.9474, True), (0.9461, True), (0.9480, True), (0.9474 + 0.0049, True),
+    (0.9474 - 0.0051, False), (0.97087, False)])
+def test_phase15_sampled_band(frac, ok):
+    assert cs.within_band(frac, 0.9474, cs.MESH_FRAC_ABS) is ok
+
+
+@pytest.mark.parametrize("frac, ok", [
+    (0.5, True), (0.5009, True), (0.4991, True), (0.5011, False),
+    (0.498, False)])
+def test_phase15_full_fraction_band(frac, ok):
+    assert cs.within_band(frac, 0.5, cs.MESH_FULL_FRAC_ABS) is ok
+
+
+def test_phase15_graph_agreement_ignores_near_ties_only():
+    import torch
+    d = torch.tensor([[1.0, 2.0, 3.0], [1.0, 1.0 + 1e-7, 2.0]])
+    i = torch.tensor([[4, 5, 6], [7, 8, 9]], dtype=torch.int32)
+    assert cs.graph_agreement(i, d, i, d) == (1.0, 0, 0.0)
+    tie = i.clone()
+    tie[1, [0, 1]] = tie[1, [1, 0]]                  # a near-tie swapped
+    agree, rows, _ = cs.graph_agreement(tie, d, i, d)
+    assert agree == 1.0 and rows == 1
+    clear = i.clone()
+    clear[0, 2] = 11                                 # a clear column
+    assert cs.graph_agreement(clear, d, i, d)[0] < cs.MESH_GRAPH_AGREE

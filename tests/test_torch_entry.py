@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import annembed_tpu as ja
 import annembed_tpu_torch as ta
@@ -163,9 +164,14 @@ def _cli_argv(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag", [["--n-devices", "2"]])
-def test_cli_refuses_unported_flags(tmp_path, flag):
-    with pytest.raises(NotImplementedError):
-        t_cli.main(_cli_argv(tmp_path, flag))
+def test_cli_refuses_unported_flags(tmp_path, flag, capsys):
+    """``--n-devices`` runs on gloo ranks with ``--device cpu`` and is
+    refused on the card beyond the cards present (no fallback)."""
+    out = _cli_json(t_cli.main, _cli_argv(tmp_path, flag), capsys)
+    assert out["n"] == 50 and out["n_devices"] == int(flag[1])
+    beyond = [flag[0], str(torch.cuda.device_count() + 1), "--device", "cuda"]
+    with pytest.raises((RuntimeError, ValueError)):
+        t_cli.main(_cli_argv(tmp_path, beyond))
 
 
 @pytest.mark.parametrize("flag, key", [

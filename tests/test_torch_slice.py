@@ -118,7 +118,10 @@ def test_one_step_embed_runs():
     assert _accuracy(y, labels) >= 0.85
 
 
-UNSUPPORTED = [dict(n_devices=2), dict(mesh=object())]
+# what the multi-device path refuses before any graph is built: more
+# ranks than cards (never a fallback to fewer, or to the CPU), and a
+# mesh that is not a parallel.sharded.Mesh
+UNSUPPORTED = [dict(n_devices=2, device="cuda"), dict(mesh=object())]
 # refused until they were ported: HDBSCAN* (``cluster``), the sampling
 # optimizer, 600 rows above a limit of 100 (they never reach the brute
 # build) and bfloat16 panels
@@ -163,8 +166,10 @@ def _no_brute_above_limit(kwargs, monkeypatch):
 def test_unsupported_options_raise(kwargs, monkeypatch):
     x, _ = _blobs()
     _no_graph_build(monkeypatch)
-    with pytest.raises(NotImplementedError):
-        ta.embed(x, nbng=6, batch=2, device="cpu", **kwargs)
+    if "n_devices" in kwargs:
+        kwargs = dict(kwargs, n_devices=torch.cuda.device_count() + 1)
+    with pytest.raises((RuntimeError, ValueError, TypeError)):
+        ta.embed(x, **dict(dict(nbng=6, batch=2, device="cpu"), **kwargs))
 
 
 @pytest.mark.parametrize("name", ["Dense", "samplng"])
@@ -186,10 +191,13 @@ def test_formerly_refused_options_run(kwargs, monkeypatch):
 
 
 def test_dmap_embed_refuses_before_graph_build(monkeypatch):
+    """More ranks than cards: refused, never run on fewer or on the
+    CPU."""
     x, _ = _blobs()
     _no_graph_build(monkeypatch)
-    with pytest.raises(NotImplementedError):
-        ta.dmap_embed(x, nbng=6, device="cpu", n_devices=2)
+    with pytest.raises((RuntimeError, ValueError)):
+        ta.dmap_embed(x, nbng=6, device="cuda",
+                      n_devices=torch.cuda.device_count() + 1)
 
 
 @pytest.mark.parametrize("kwargs", FORMERLY_REFUSED[2:])
