@@ -20,9 +20,9 @@ The last stdout line has the keys of the JAX harness's record
 sampled rows, the quality summary).  The port's own fields
 (``graph_build_phases``, ``projection_distance_quantiles``,
 ``checkpoints`` with the cache load and save seconds, the top-1
-kernel's launches, the quality radius search's route, seconds and
-certificate fallbacks, peak host and device memory) go to stderr as
-one line starting ``port:``.
+kernel's and the dense sweep kernel pair's launches, the quality radius
+search's route, seconds and certificate fallbacks, peak host and device
+memory) go to stderr as one line starting ``port:``.
 
 The JAX harness's channel-preflight watchdog (a thread that exits the
 process when the TPU runtime's first readback stalls) guards a TPU
@@ -48,6 +48,8 @@ from annembed_tpu_torch.io.csv_io import (get_toembed_from_csv,
 from annembed_tpu_torch.io.synthetic import (synthetic_clustered_manifold,
                                              synthetic_higgs)
 from annembed_tpu_torch.knn.api import sampled_exact_recall
+from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
+                                                dense_kick_rows)
 from annembed_tpu_torch.ops.top1 import top1_l2
 
 #: ``info`` fields the JAX harness's record does not carry
@@ -243,6 +245,8 @@ def main(argv=None) -> int:
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
     port["top1_l2_launches"] = top1_l2.launches
+    port["dense_sweep_launches"] = (dense_attraction_rows.launches
+                                    + dense_kick_rows.launches)
     if args.quality:
         port["quality_radius"] = at.quality_estimate.last_radius_search
     port["peak_host_rss_gib"] = (resource.getrusage(resource.RUSAGE_SELF)

@@ -27,6 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "annembed_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: flags of one source beyond NVCC_FLAGS: the dense sweep rounds every
+#: product and sum as its twin's separate torch ops round them (no FMA
+#: contraction), so kernel and twin differ only where their libraries do
+SOURCE_FLAGS = {"dense_sweep": ("-fmad=false",)}
 CUTLASS_INCLUDE = Path("/usr/local/cutlass/include")
 _INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
 
@@ -61,9 +65,10 @@ def source_files(name: str) -> tuple[list[Path], bool]:
 
 def nvcc_flags(name: str) -> tuple[str, ...]:
     _, uses_cutlass = source_files(name)
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
     if uses_cutlass and CUTLASS_INCLUDE.is_dir():
-        return NVCC_FLAGS + (f"-I{CUTLASS_INCLUDE}",)
-    return NVCC_FLAGS
+        return flags + (f"-I{CUTLASS_INCLUDE}",)
+    return flags
 
 
 def library_path(name: str) -> Path:
@@ -80,20 +85,39 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
+def _start_build(name: str):
+    out = library_path(name)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *nvcc_flags(name), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp: Path, out: Path) -> None:
+    _, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                           f"{name}.cu:\n{stderr}")
+    out.with_suffix(".log").write_text(stderr)
+    os.replace(tmp, out)
+
+
+def build_libraries(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose hashed build
+    is missing, one nvcc each, all started together; a failed build
+    raises with its stderr."""
+    started = [(name, *_start_build(name)) for name in names
+               if not library_path(name).is_file()]
+    for name, proc, tmp, out in started:
+        _finish_build(name, proc, tmp, out)
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` unless its hashed build exists, then
     load it.  A failed build raises with nvcc's stderr."""
-    out = library_path(name)
-    if not out.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *nvcc_flags(name), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{name}.cu:\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stderr)
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    build_libraries([name])
+    return ctypes.CDLL(str(library_path(name)))

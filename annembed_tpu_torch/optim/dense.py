@@ -14,17 +14,21 @@ derivation).  In short, per sub-sweep of the default path:
   * gamma decays as grad_step * (1 - batch/nb_grad_batch); the final
     batch (gamma = 0) is skipped.
 
-Layout: coordinates are (d, n) and edge tables (kg, n), as in the JAX
-package, so the two can be compared array for array.  The relabel
-permutation and the per-sweep offsets come from a ``torch.Generator``,
-or are passed in (tests feed the JAX package's draws).
+Each sweep of the transposed path runs as two launches of the CUDA
+kernel pair in ``ops/dense_sweep.py`` on the card, and on the CPU as
+their twins, which call the per-sweep functions below in the JAX
+package's (d, n) layout.  ``dense_optimize`` keeps the kernel's layout:
+coordinates row-major (n, d), each group's edge tables (kg, n), built
+once per call.  The relabel permutation and the per-sweep offsets come
+from a ``torch.Generator``, or are passed in (tests feed the JAX
+package's draws).
 
 The knobs, each as the JAX package runs it:
 
   * ``n_blocks`` > 1: each sub-sweep moves one contiguous node block,
     group x block round-robin (block fastest);
-  * ``gather_reuse`` S > 1: one neighbour gather feeds S consecutive
-    sweeps (the attraction reads neighbours up to S-1 sweeps stale);
+  * ``gather_reuse`` S > 1: S consecutive sweeps read their neighbours
+    from one snapshot (the attraction reads them up to S-1 sweeps stale);
     stale blocks restart at each segment of ``_segments``, whose
     boundaries are the JAX package's program segments;
   * ``parallel_kicks``: the n_neg kicks read the post-attraction
@@ -46,6 +50,7 @@ import torch
 from ..graph.kgraph import KGraph
 from ..graph.proba import NodeParams
 from ..params import PROBA_MIN, EmbedderParams
+from ..ops.dense_sweep import dense_attraction_rows, dense_kick_rows
 from .ce import NB_NEGATIVE, _common_coeff, embedded_scales_from_initial
 
 
@@ -379,9 +384,9 @@ def dense_optimize(y0, indices, w, m_visit, w_rev, m_rev_visit, emb_scale,
     every n_groups-th sub-sweep (with ``n_blocks`` > 1, one node block of
     it, blocks fastest).  ``offsets`` (one per executed sweep) or
     ``generator`` give the repulsion pool offsets.  Sweeps whose global
-    batch lies past ``gather_reuse_after`` of the schedule share one
-    neighbour gather per ``gather_reuse`` sweeps.  Returns the updated
-    (n, d) coordinates (relabeled order)."""
+    batch lies past ``gather_reuse_after`` of the schedule read their
+    neighbours from one snapshot per ``gather_reuse`` sweeps.  Returns the
+    updated (n, d) coordinates (relabeled order)."""
     if batch1 is None:
         batch1 = nb_grad_batch
     # the reference's final batch runs at gamma = 0 (embedder.rs:873-876),
@@ -428,78 +433,63 @@ def dense_optimize(y0, indices, w, m_visit, w_rev, m_rev_visit, emb_scale,
             b, n_neg, n_groups, f_min, mask_p, total_steps, offsets,
             gamma_of, rot_of, mask_of)
 
+    # the kernel's layout, built once: y row-major (n, d), each group's
+    # edge tables (kg, rows) and the neighbour ids (k, rows) in int32
+    idx32 = indices.to(torch.int32)
+    scale = emb_scale.to(torch.float32).contiguous()
+    nw = (None if neg_weight is None
+          else neg_weight.to(torch.float32).contiguous())
+
     def columns(c, lo=0, hi=n):
         sl = slice(c * kg, (c + 1) * kg)
-        return dict(idxT=idx64[lo:hi, sl].T.contiguous(),
-                    wT=w[lo:hi, sl].T.contiguous(),
-                    mT=m_visit[lo:hi, sl].T.contiguous(),
-                    w_revT=w_rev[lo:hi, sl].T.contiguous(),
-                    m_revT=m_rev_visit[lo:hi, sl].T.contiguous(),
-                    scale_jT=emb_scale[idx64[lo:hi, sl]].T.contiguous())
+        return dict(idx=idx32[lo:hi, sl].T.contiguous(),
+                    w=w[lo:hi, sl].T.contiguous(),
+                    m=m_visit[lo:hi, sl].T.contiguous(),
+                    w_rev=w_rev[lo:hi, sl].T.contiguous(),
+                    m_rev=m_rev_visit[lo:hi, sl].T.contiguous(),
+                    scale_j=scale[idx64[lo:hi, sl]].T.contiguous())
 
-    yT = y0.to(torch.float32).T.contiguous().clone()
-    if n_blocks > 1:
-        blocks = []
-        for lo, hi in _block_bounds(n, n_blocks):
-            blocks.append(dict(lo=lo, hi=hi, scale_iT=emb_scale[None, lo:hi],
-                               idxT_full=idx64[lo:hi].T.contiguous()))
-        gb = [dict(columns(c, blk["lo"], blk["hi"]), **blk)
-              for c in range(n_groups) for blk in blocks]
-        for s in range(total_steps):
-            gamma = gamma_of(s)
-            gd = gb[rot_of(s, n_groups * n_blocks)]
-            lo, hi = gd["lo"], gd["hi"]
-            nb = hi - lo
-            y_blk = yT[:, lo:hi] + _attraction_sweep_sfT(
-                yT, gd["idxT"], gd["wT"], gd["mT"], gd["w_revT"],
-                gd["m_revT"], gd["scale_iT"], gd["scale_jT"], gamma, b,
-                f_min=f_min, mask=mask_of((kg, nb)), mask_p=mask_p,
-                y_ownT=yT[:, lo:hi])
-            yT[:, lo:hi] = y_blk
-            # wraparound-extended snapshot for the strided pool
-            yT_ext = torch.cat([yT, yT[:, :nb]], dim=1)
-            nw_ext = (None if neg_weight is None
-                      else torch.cat([neg_weight, neg_weight[:nb]]))
-            yT[:, lo:hi] = _repulsion_block_T(
-                yT_ext, y_blk, lo, n, int(offsets[s]), gd["idxT_full"],
-                gd["scale_iT"], gamma, b, n_neg, neg_weight_ext=nw_ext,
-                neighbor_exclusion=neighbor_exclusion,
-                parallel_kicks=parallel_kicks)
-        return yT.T.contiguous()
-
-    idxT_full = idx64.T.contiguous()                   # (k, n)
-    scale_iT = emb_scale[None, :]
-    groups = [columns(c) for c in range(n_groups)]
-
-    def sweep(yT, s, yjT=None):
+    def sweep(y, s, gd, lo, idx_full, y_src=None, flat=False):
+        # the attraction of rows [lo, lo + rows), then their kicks
+        # against the post-attraction snapshot, written back into y
         gamma = gamma_of(s)
-        c = rot_of(s, n_groups)
-        gd = groups[c]
-        yT = yT + _attraction_sweep_sfT(
-            yT, gd["idxT"], gd["wT"], gd["mT"], gd["w_revT"], gd["m_revT"],
-            scale_iT, gd["scale_jT"], gamma, b, f_min=f_min,
-            mask=mask_of((kg, n)), mask_p=mask_p,
-            yjT=None if yjT is None else yjT[:, c * kg:(c + 1) * kg])
-        return yT + _repulsion_sweep_rolledT(
-            yT, int(offsets[s]), idxT_full, scale_iT, gamma, b, n_neg,
-            neg_weight=neg_weight, neighbor_exclusion=neighbor_exclusion,
-            parallel_kicks=parallel_kicks)
+        rows = gd["idx"].shape[1]
+        a = dense_attraction_rows(
+            y, y if y_src is None else y_src, lo, gd["idx"], gd["w"],
+            gd["m"], gd["w_rev"], gd["m_rev"], gd["scale_j"], scale, gamma,
+            b, f_min=f_min, mask=mask_of((kg, rows)), mask_p=mask_p)
+        dense_kick_rows(y, a, lo, int(offsets[s]), idx_full, scale, gamma, b,
+                        n_neg, neg_weight=nw,
+                        neighbor_exclusion=neighbor_exclusion,
+                        parallel_kicks=parallel_kicks, flat=flat,
+                        out=y[lo:lo + rows])
 
+    y = y0.to(torch.float32).contiguous().clone()
+    if n_blocks > 1:
+        blocks = [(lo, idx32[lo:hi].T.contiguous())
+                  for lo, hi in _block_bounds(n, n_blocks)]
+        gb = [(columns(c, lo, lo + full.shape[1]), lo, full)
+              for c in range(n_groups) for lo, full in blocks]
+        for s in range(total_steps):
+            sweep(y, s, *gb[rot_of(s, n_groups * n_blocks)])
+        return y
+
+    idx_full = idx32.T.contiguous()                    # (k, n)
+    groups = [columns(c) for c in range(n_groups)]
     for pos, seg_steps, s_r in _segments(
             total_steps, n, n_groups, n_blocks, n_sub, nb_grad_batch, batch0,
             gather_reuse, gather_reuse_after):
-        if s_r == 1:
-            for s in range(pos, pos + seg_steps):
-                yT = sweep(yT, s)
-            continue
-        # the stale gather: one full-k gather feeds s_r sweeps, the
-        # column-group rotation unchanged; blocks restart at the segment
-        end = pos + seg_steps
-        for blk in range(pos, end, s_r):
-            yj_full = yT[:, idxT_full]                 # (d, k, n)
-            for s in range(blk, min(blk + s_r, end)):
-                yT = sweep(yT, s, yj_full)
-    return yT.T.contiguous()
+        snap = None
+        for s in range(pos, pos + seg_steps):
+            # the stale gather: the neighbours of s_r sweeps are read
+            # from a snapshot taken at the block's first sweep, the
+            # column-group rotation unchanged; blocks restart at the
+            # segment
+            if s_r > 1 and (s - pos) % s_r == 0:
+                snap = y.clone()
+            sweep(y, s, groups[rot_of(s, n_groups)], 0, idx_full,
+                  y_src=snap, flat=True)
+    return y
 
 
 def _row_major_sweeps(y0, idx64, w, m_visit, w_rev, m_rev_visit, emb_scale,

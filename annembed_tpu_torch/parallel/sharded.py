@@ -336,15 +336,16 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
     row-sharded over the mesh: the optim/dense.py formulation (column-
     grouped scatter-free attraction with the closure floor and edge
     masks, then the rolled identity-pool kicks) on this rank's row
-    block, the updated blocks all-gathered after each half-sweep.  Kick
-    t of position p pairs it with (p + offset + t * (n // n_neg)) mod n
-    of the replicated snapshot, a contiguous window.
+    block, each half-sweep one launch of ops/dense_sweep.py's kernel pair
+    (their twins on the CPU), the updated blocks all-gathered after it.
+    Kick t of position p pairs it with (p + offset + t * (n // n_neg))
+    mod n of the replicated snapshot, a contiguous window.
 
     ``batch0`` / ``use_rot0`` carry the n_sub schedule phases: gamma
     decays at batch ``batch0 + step // n_sub + 1`` of the global
     schedule, the column-group rotation follows ``rot0 + local`` when
-    scheduled.  ``gather_reuse`` S > 1 feeds S sweeps from one full-k
-    neighbour gather, blocks restarting at the segment.
+    scheduled.  ``gather_reuse`` S > 1 reads the neighbours of S sweeps
+    from one snapshot, blocks restarting at the segment.
     ``packed_gather`` is accepted: the JAX package packs the (2, n)
     coordinates into complex64 for a cheaper TPU gather with bit-equal
     values, so the port runs its one gather either way.  The edge masks
@@ -356,13 +357,12 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
     edge tables this rank's (m, k) rows, emb_scale and neg_weight (None:
     all ones) replicated, ``offsets`` one pool offset per sweep.  The
     result is (n, dim), replicated."""
-    from ..optim.dense import (_attraction_sweep_sfT, _gamma,
-                               _repulsion_block_T)
+    from ..ops.dense_sweep import dense_attraction_rows, dense_kick_rows
+    from ..optim.dense import _gamma
     del packed_gather
 
     def segment(y0, indices, w, m_visit, w_rev, m_rev, emb_scale,
                 neg_weight, offsets, step0: int, rot0: int):
-        n, dim = y0.shape
         m, k = indices.shape
         if k % n_groups:
             raise ValueError(f"k={k} must be divisible by "
@@ -372,27 +372,24 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
                              "sweeps")
         kg = k // n_groups
         r0 = mesh.rank * m
-        idx = indices.to(torch.int64)
-        idxT_full = idx.T.contiguous()                   # (k, m) global ids
-        scale_iT = emb_scale[None, r0:r0 + m]
+        # the kernel's layout, built once a segment: y (n, dim), this
+        # rank's edge tables (kg, m) and neighbour ids (k, m), int32
+        idx = indices.to(torch.int32)
+        idx_full = idx.T.contiguous()                    # global ids
+        scale = emb_scale.to(torch.float32).contiguous()
+        nw = (None if neg_weight is None
+              else neg_weight.to(torch.float32).contiguous())
         groups = []
         for c in range(n_groups):
             sl = slice(c * kg, (c + 1) * kg)
             groups.append(dict(
-                idxT=idx[:, sl].T.contiguous(), wT=w[:, sl].T.contiguous(),
-                mT=m_visit[:, sl].T.contiguous(),
-                w_revT=w_rev[:, sl].T.contiguous(),
-                m_revT=m_rev[:, sl].T.contiguous(),
-                scale_jT=emb_scale[idx[:, sl]].T.contiguous()))
-        nw_ext = (None if neg_weight is None
-                  else torch.cat([neg_weight, neg_weight]))
+                idx=idx[:, sl].T.contiguous(), w=w[:, sl].T.contiguous(),
+                m=m_visit[:, sl].T.contiguous(),
+                w_rev=w_rev[:, sl].T.contiguous(),
+                m_rev=m_rev[:, sl].T.contiguous(),
+                scale_j=scale[idx[:, sl].to(torch.int64)].T.contiguous()))
 
-        def gather_rows(rowsT):
-            # (dim, m) blocks in rank order -> the (dim, n) embedding
-            out = mesh.all_gather_rows(rowsT)
-            return out.view(mesh.size, dim, m).transpose(0, 1).reshape(dim, n)
-
-        def sweep(yT, local, yj_full=None):
+        def sweep(y, local, y_src):
             s = step0 + local
             gamma = _gamma(grad_step_init, batch0 + s // n_sub + 1,
                            nb_grad_batch)
@@ -402,35 +399,29 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
             if mask_p < 1.0:
                 mask = (torch.rand((kg, m), generator=mask_generator,
                                    device=mask_generator.device) < mask_p
-                        ).to(yT.device, torch.float32)
-            y_own = yT[:, r0:r0 + m]
-            rows = y_own + _attraction_sweep_sfT(
-                yT, gd["idxT"], gd["wT"], gd["mT"], gd["w_revT"],
-                gd["m_revT"], scale_iT, gd["scale_jT"], gamma, b,
-                f_min=f_min, mask=mask, mask_p=mask_p, y_ownT=y_own,
-                yjT=(None if yj_full is None
-                     else yj_full[:, c * kg:(c + 1) * kg]))
-            yT = gather_rows(rows)
+                        ).to(y.device, torch.float32)
+            rows = dense_attraction_rows(
+                y, y_src, r0, gd["idx"], gd["w"], gd["m"], gd["w_rev"],
+                gd["m_rev"], gd["scale_j"], scale, gamma, b, f_min=f_min,
+                mask=mask, mask_p=mask_p)
+            y = mesh.all_gather_rows(rows)
             # the kicks read the post-attraction snapshot, own rows too
-            rows = _repulsion_block_T(
-                torch.cat([yT, yT], dim=1), yT[:, r0:r0 + m], r0, n,
-                int(offsets[local]), idxT_full, scale_iT, gamma, b, n_neg,
-                neg_weight_ext=nw_ext, neighbor_exclusion=neighbor_exclusion,
+            rows = dense_kick_rows(
+                y, y[r0:r0 + m], r0, int(offsets[local]), idx_full, scale,
+                gamma, b, n_neg, neg_weight=nw,
+                neighbor_exclusion=neighbor_exclusion,
                 parallel_kicks=parallel_kicks)
-            return gather_rows(rows)
+            return mesh.all_gather_rows(rows)
 
-        yT = y0.to(torch.float32).T.contiguous()
-        if gather_reuse > 1:
-            # the stale gather: one full-k gather from the replicated
-            # snapshot feeds S sweeps, rotation and draws as fresh
-            for blk in range(0, seg_steps, gather_reuse):
-                yj_full = yT[:, idxT_full]                 # (dim, k, m)
-                for local in range(blk, min(blk + gather_reuse, seg_steps)):
-                    yT = sweep(yT, local, yj_full)
-        else:
-            for local in range(seg_steps):
-                yT = sweep(yT, local)
-        return yT.T.contiguous()
+        y = y0.to(torch.float32).contiguous()
+        # the stale gather (S > 1): the neighbours of S sweeps are read
+        # from the replicated snapshot of the block's first sweep,
+        # rotation and draws as fresh; blocks restart at the segment
+        for blk in range(0, seg_steps, gather_reuse):
+            snap = y
+            for local in range(blk, min(blk + gather_reuse, seg_steps)):
+                y = sweep(y, local, snap)
+        return y
 
     return segment
 

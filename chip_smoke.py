@@ -7,14 +7,24 @@ Phases, each raising on failure (so the exit code is non-zero; with no
 CUDA device it exits 1 before printing any result):
 
 1. the device, its name and power limit;
-2. the CUDA kernel built from this checkout's sources, with ptxas's
-   report (registers, shared memory, spills);
-3. the kernel against its plain PyTorch twin at the hierarchical path's
+2. the CUDA kernels built from this checkout's sources, one nvcc each,
+   all started together, with ptxas's report (registers, shared memory,
+   spills);
+3. the top-1 kernel against its plain PyTorch twin at the hierarchical
+   path's
    shapes, every query row (11M x 440k x 28 on the Higgs rows, the twin
    and ``torch.cdist`` + ``min`` timed once at that size; 200k x 8k x 28,
    the exact path's projection; 1M x 40k x 28; 70k x 3.5k x 784 on the
    bench's rows; a ragged 77 x 131 x 5), timed in turns with its
    yardstick and beside its bound;
+3b. the dense sweep kernel pair (``ops/dense_sweep.py``) against its
+   twins, one sweep from the same input held after the attraction half,
+   after the kicks and for the kicks alone, two launches bit-equal, timed
+   in turns with the twins beside ``sweep_bounds``: phase 4's large step
+   (11,000,000 rows) and first step (440,000), the bench's graph, and one
+   small case per knob (a node block whose partner windows wrap past n,
+   parallel kicks, edge masks, a stale snapshot, b = 1.5, no neighbour
+   exclusion, d = 3, d = 5);
 4. the main path: ``embed(x, layer=1)`` on 11,000,000 x 28 Higgs-shaped
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
@@ -87,7 +97,10 @@ CUDA device it exits 1 before printing any result):
    through the sharded IVF rebuild, within 0.001 of the single device's;
    with W > 1, (b) once more through ``embed(n_devices=W)``.
 
-Before each path the kernel launch counts are set to 0 and read after it.
+Before each path the kernel launch counts are set to 0 and read after it;
+every dense path (phases 4, 5, 7, 8, 11, 12 but the row-major scatter
+knob, 15 on every rank) must launch the dense sweep kernel pair, the
+CLI's and the harness's processes reporting their own counts.
 The last line is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -138,11 +151,23 @@ D2_REL = 1e-5
 MIN_RECALL = 0.99                # exact graphs
 MIN_PURITY = 0.9
 ROOT = Path(__file__).resolve().parent
+KERNEL_SOURCES = ("top1_l2", "dense_sweep")
 # phase 3: the kernel's other shapes on the path (bench rows at the
 # default hierarchy fraction); the H100 SXM data sheet's peaks for the
 # bounds
 BENCH_FRACTION = 0.05
 H100_BYTES_PER_S, H100_TF32_FLOPS, H100_F32_FLOPS = 3.35e12, 495e12, 67e12
+# phase 3b: the dense sweep kernel against its twin after one sweep from
+# the same input: the attraction half within SWEEP_ATT_REL of max|y|, the
+# whole sweep and the kick kernel alone on the twin's attraction within
+# SWEEP_REL (the kicks chain n_neg steps, each of which can scale a
+# rounding difference by more than 3); two launches on the same input
+# bit-equal.  The large step's and the first step's shapes of
+# phase 4 (d 2, kg 3, k 6, n_neg 5, hubness weights), the bench's graph,
+# and one small case per knob on SWEEP_SMALL_ROWS rows.
+SWEEP_ATT_REL, SWEEP_REL = 1e-5, 1e-4
+SWEEP_LARGE_ROWS, SWEEP_FIRST_ROWS = N_ROWS, 440_000
+SWEEP_SMALL_ROWS = 5_003
 
 # phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
 # workload with the same exact f32 graph, the mean of seeds 0 / 1 / 2
@@ -375,14 +400,254 @@ def check_kernel(name, q, c, reps, once=False):
     return out
 
 
-def phase_bench():
-    """Phase 5: bench.py's one-step workload at 70,000 x 784."""
-    from annembed_tpu_torch import bench
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
+                                                    dense_kick_rows)
     from annembed_tpu_torch.ops.top1 import top1_l2
     top1_l2.launches = 0
+    dense_attraction_rows.launches = 0
+    dense_kick_rows.launches = 0
+
+
+def dense_launches() -> int:
+    """The dense sweep kernel pair's launches since the last reset."""
+    from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
+                                                    dense_kick_rows)
+    return dense_attraction_rows.launches + dense_kick_rows.launches
+
+
+def sweep_bounds(n_rows, kg, k, n_neg, d, hub, exclusion=True, mask=False):
+    """Least time (ms) an H100 SXM could take for one dense sweep of
+    ``n_rows`` rows: the larger of its bytes, every input read once and
+    the output written once (y and the new y (n, d); the group's idx, w,
+    m, w_rev, m_rev, scale_j and mask (kg, n); scale and the hubness
+    weights (n,); the neighbour ids (k, n)) at 3.35 TB/s, and its f32
+    operations (counted from the formula, a log or exp as one) at 67
+    TFLOP/s.  Beside it, the bytes the two launches touch: each
+    neighbour and partner row read once a use, the attraction's output
+    written and read back."""
+    table = kg * (24 + 4 * mask)
+    once = (8 * d + table + 4 + 4 * hub + 4 * k * exclusion) * n_rows
+    touched = ((4 * d + 4 + table + kg * 4 * d + 4 * d)
+               + (4 * d + 4 + n_neg * (4 * d + 4 * hub) + 4 * k * exclusion
+                  + 4 * d)) * n_rows
+    ops = (kg * (48 + 5 * d) + n_neg * (16 + 6 * d + k * exclusion)
+           + 2 * d) * n_rows
+    bytes_ms = once / H100_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_F32_FLOPS * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes_once=once, bytes_touched=touched,
+                touched_ms=touched / H100_BYTES_PER_S * 1e3)
+
+
+def sweep_inputs(n, kg=3, k=6, d=2, hub=True, seed=0):
+    """One sweep's inputs on the card at phase 4's shapes: coordinates
+    N(0, 3^2), neighbours uniform over the rows (the relabel permutation
+    leaves them so), weights, multiplicities and scales in the ranges of
+    the Higgs graph's, half of the reverse weights zero."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return torch.rand(shape, generator=g, device="cuda") * (hi - lo) + lo
+
+    idx_full = torch.randint(0, n, (k, n), generator=g, device="cuda",
+                             dtype=torch.int32)
+    w = u((kg, n), 0.05, 1.0)
+    w_rev = torch.where(u((kg, n), 0.0, 1.0) < 0.5, u((kg, n), 0.05, 1.0),
+                        torch.zeros((), device="cuda"))
+    scale = u((n,), 0.5, 2.0)
+    idx = idx_full[:kg].contiguous()
+    return dict(y=3.0 * torch.randn((n, d), generator=g, device="cuda"),
+                idx=idx, w=w, m=2.0 * w, w_rev=w_rev, m_rev=2.0 * w_rev,
+                scale_j=scale[idx.long()].contiguous(), scale=scale,
+                neg_weight=u((n,), 0.25, 4.0) if hub else None,
+                idx_full=idx_full, gamma=1.0, b=1.0, n_neg=5,
+                offset=int(torch.randint(0, n, (), generator=g,
+                                         device="cuda")))
+
+
+def bench_sweep_inputs():
+    """The bench's graph (70,000 x 784 blobs, exact 6-NN, its edge
+    probabilities) through ``prepare_dense_inputs`` at the bench's first
+    schedule phase (n_sub 15, two column groups, no hubness weights,
+    neighbour exclusion off), from a random start in its data box."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.graph.kgraph import KGraph
+    from annembed_tpu_torch.graph.proba import to_proba_edges
+    from annembed_tpu_torch.io.synthetic import synthetic_blobs
+    from annembed_tpu_torch.knn.brute import knn_graph_brute
+    from annembed_tpu_torch.optim.dense import _gamma, prepare_dense_inputs
+    from annembed_tpu_torch.params import EmbedderParams
+    x = torch.from_numpy(synthetic_blobs(bench.N, bench.D, 42)
+                         .astype(np.float32)).to("cuda")
+    gi, gd = knn_graph_brute(x, bench.KNBN, block_rows=bench.BLOCK_ROWS)
+    gr = KGraph(indices=gi, dists=gd)
+    del x
+    params = EmbedderParams(nb_grad_batch=sum(b for b, _ in bench.SCHEDULE),
+                            n_sub_schedule=bench.SCHEDULE,
+                            dense_neighbor_exclusion=False)
+    gen = torch.Generator().manual_seed(SEED)
+    y0 = (torch.rand((bench.N, 2), generator=gen) * 20.0 - 10.0).to("cuda")
+    (y, idx, w, m, w_rev, m_rev, scale, _, n_neg, _) = prepare_dense_inputs(
+        y0, gr, to_proba_edges(gr), params, bench.SCHEDULE[0][1], 2,
+        generator=gen)
+    idx = idx.to(torch.int32)
+    sl = slice(0, 3)
+
+    def group(t):
+        return t[:, sl].T.contiguous()
+
+    return dict(y=y.contiguous(), idx=group(idx), w=group(w), m=group(m),
+                w_rev=group(w_rev), m_rev=group(m_rev),
+                scale_j=scale[idx[:, sl].long()].T.contiguous(),
+                scale=scale.contiguous(), neg_weight=None,
+                idx_full=idx.T.contiguous(),
+                gamma=_gamma(params.grad_step, 1, params.nb_grad_batch),
+                b=1.0, n_neg=n_neg, offset=int(torch.randint(
+                    0, bench.N, (), generator=gen)), exclusion=False)
+
+
+def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
+                      mask=None, mask_p=1.0, parallel=False,
+                      exclusion=True, flat=None):
+    """Phase 3b on one shape: the kernel pair and its twins from the same
+    input, held after the attraction half, after the kicks, and the kick
+    kernel alone on the twin's attraction; the kernel's sweep launched
+    twice, bit-equal; then timed in turns with the twin's (twin, kernel,
+    kernel, twin) beside ``sweep_bounds``."""
+    from annembed_tpu_torch.ops.dense_sweep import (
+        dense_attraction_rows, dense_attraction_rows_reference,
+        dense_kick_rows, dense_kick_rows_reference)
+    y = inp["y"]
+    n, d = y.shape
+    rows = n - lo if rows is None else rows
+    exclusion = inp.get("exclusion", exclusion)
+    flat = (rows == n) if flat is None else flat
+    sl = slice(lo, lo + rows)
+    tables = [inp[key][:, sl].contiguous() for key in
+              ("idx", "w", "m", "w_rev", "m_rev", "scale_j")]
+    mask = None if mask is None else mask[:, sl].contiguous()
+    idx_full = inp["idx_full"][:, sl].contiguous()
+    src = y if y_src is None else y_src
+    gamma, b, n_neg = inp["gamma"], inp["b"], inp["n_neg"]
+    att = dict(mask=mask, mask_p=mask_p)
+    kick = dict(neg_weight=inp["neg_weight"], neighbor_exclusion=exclusion,
+                parallel_kicks=parallel, flat=flat)
+
+    def sweep(attraction, kicks, a=None):
+        if a is None:
+            a = attraction(y, src, lo, *tables, inp["scale"], gamma, b,
+                           **att)
+        return a, kicks(y, a, lo, inp["offset"], idx_full, inp["scale"],
+                        gamma, b, n_neg, **kick)
+
+    a_k, o_k = sweep(dense_attraction_rows, dense_kick_rows)
+    a_k2, o_k2 = sweep(dense_attraction_rows, dense_kick_rows)
+    a_t, o_t = sweep(dense_attraction_rows_reference,
+                     dense_kick_rows_reference)
+    _, o_kt = sweep(None, dense_kick_rows, a=a_t)
+    torch.cuda.synchronize()
+    y_max = float(y.abs().max())
+    att_err = float((a_k - a_t).abs().max())
+    err = float((o_k - o_t).abs().max())
+    kick_err = float((o_kt - o_t).abs().max())
+    bit_equal = torch.equal(a_k, a_k2) and torch.equal(o_k, o_k2)
+    moved = float((o_t - y[sl]).abs().max())
+    finite = bool(torch.isfinite(o_k).all())
+    del a_k, o_k, a_k2, o_k2, a_t, o_t, o_kt
+    kernel = lambda: sweep(dense_attraction_rows, dense_kick_rows)  # noqa
+    twin = lambda: sweep(dense_attraction_rows_reference,  # noqa: E731
+                         dense_kick_rows_reference)
+    twin_a = cuda_ms(twin, reps)
+    ms_a = cuda_ms(kernel, reps)
+    ms_b = cuda_ms(kernel, reps)
+    twin_b = cuda_ms(twin, reps)
+    ms, twin_ms = (ms_a + ms_b) / 2, (twin_a + twin_b) / 2
+    bnd = sweep_bounds(rows, tables[0].shape[0], idx_full.shape[0], n_neg, d,
+                       inp["neg_weight"] is not None, exclusion,
+                       mask is not None)
+    out = dict(shape=name, n=n, rows=rows, lo=lo, d=d, kg=tables[0].shape[0],
+               k=idx_full.shape[0], n_neg=n_neg,
+               hub=inp["neg_weight"] is not None, exclusion=exclusion,
+               parallel_kicks=parallel, stale=y_src is not None,
+               mask_p=mask_p, b=b, flat=flat, max_abs_err=err,
+               attraction_max_abs_err=att_err, kick_max_abs_err=kick_err,
+               max_abs_y=y_max,
+               max_move=moved, bit_equal=bit_equal, ms=ms, twin_ms=twin_ms,
+               bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+               touched_ms=bnd["touched_ms"],
+               share_of_bound=bnd["bound_ms"] / ms)
+    log(f"dense sweep {name}: n={n} rows={rows} lo={lo} d={d} "
+        f"kg={out['kg']} k={out['k']} n_neg={n_neg} hub={out['hub']} "
+        f"exclusion={exclusion} parallel={parallel} stale={out['stale']} "
+        f"mask_p={mask_p} b={b} flat={flat}: attraction max abs err "
+        f"{att_err:.3e}, sweep {err:.3e}, kicks alone {kick_err:.3e} "
+        f"(max|y| {y_max:.3e}, largest move "
+        f"{moved:.3e}); two launches bit-equal {bit_equal}; ms={ms:.4f} "
+        f"twin_ms={twin_ms:.4f} bound_ms={bnd['bound_ms']:.4f} "
+        f"({bnd['bound_by']}; touched {bnd['touched_ms']:.4f}) "
+        f"share={bnd['bound_ms'] / ms:.4f}; turns twin {twin_a:.4f} kernel "
+        f"{ms_a:.4f} {ms_b:.4f} twin {twin_b:.4f}")
+    if not finite or att_err > SWEEP_ATT_REL * y_max or \
+            max(err, kick_err) > SWEEP_REL * y_max or not bit_equal:
+        raise AssertionError(
+            f"dense sweep kernel at {name}: attraction err {att_err}, sweep "
+            f"err {err}, kicks alone {kick_err} (max|y| {y_max}), bit-equal "
+            f"{bit_equal}, finite {finite}")
+    return out
+
+
+def phase_dense_sweep():
+    """Phase 3b: the dense sweep kernel against its twin at phase 4's
+    two steps, the bench's graph and one small case per knob."""
+    shapes = []
+    inp = sweep_inputs(SWEEP_LARGE_ROWS)
+    shapes.append(check_dense_sweep("higgs_large_step", inp, reps=20))
+    del inp
+    shapes.append(check_dense_sweep("higgs_first_step",
+                                    sweep_inputs(SWEEP_FIRST_ROWS), reps=50))
+    shapes.append(check_dense_sweep("bench_graph", bench_sweep_inputs(),
+                                    reps=50))
+    n = SWEEP_SMALL_ROWS
+    inp = sweep_inputs(n, seed=1)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    # a node block whose partner windows wrap past n
+    shapes.append(check_dense_sweep("block_wrap", dict(inp, offset=n - 97),
+                                    reps=5, lo=3_001, rows=1_700))
+    shapes.append(check_dense_sweep("parallel_kicks", inp, reps=5,
+                                    parallel=True))
+    shapes.append(check_dense_sweep(
+        "mask", inp, reps=5, mask_p=0.7, mask=(torch.rand(
+            (3, n), generator=g, device="cuda") < 0.7).float()))
+    shapes.append(check_dense_sweep(
+        "stale", inp, reps=5, y_src=inp["y"] + 0.1 * torch.randn(
+            inp["y"].shape, generator=g, device="cuda")))
+    shapes.append(check_dense_sweep("b_1.5", dict(inp, b=1.5), reps=5))
+    shapes.append(check_dense_sweep("no_exclusion", inp, reps=5,
+                                    exclusion=False))
+    shapes.append(check_dense_sweep("d3", sweep_inputs(n, d=3, seed=3),
+                                    reps=5))
+    shapes.append(check_dense_sweep("d5_block", sweep_inputs(n, d=5, seed=4),
+                                    reps=5, lo=11, rows=4_000,
+                                    parallel=True))
+    return shapes
+
+
+def phase_bench():
+    """Phase 5: bench.py's one-step workload at 70,000 x 784.  Returns
+    the dense sweep kernel's launches."""
+    from annembed_tpu_torch import bench
+    from annembed_tpu_torch.ops.top1 import top1_l2
+    reset_launches()
     rec, t, y, tm = bench.run(bench.N, "cuda")
+    dense = dense_launches()
     log(f"bench: phases (s) {json.dumps(t)}; manifold row {json.dumps(tm)}; "
-        f"top1_l2 launches={top1_l2.launches}")
+        f"top1_l2 launches={top1_l2.launches}; dense sweep launches={dense}")
+    if dense < 1:
+        raise AssertionError("the bench never launched the dense sweep "
+                             "kernel")
     log(json.dumps(rec))
     y = y.cpu().numpy()
     if y.shape != (bench.N, 2) or not np.isfinite(y).all():
@@ -404,6 +669,7 @@ def phase_bench():
         f"({rel:.4f} relative); manifold mean_matched "
         f"{rec['manifold_mean_matched']:.4f} vs JAX "
         f"{JAX_MANIFOLD_MEAN_MATCHED:.4f} ({diff:.4f})")
+    return dense
 
 
 def phase_dmap(at):
@@ -412,7 +678,7 @@ def phase_dmap(at):
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.ops.top1 import top1_l2
     x = synthetic_blobs(N, D, 42)
-    top1_l2.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y, info = at.dmap_embed(x, dim=2, device="cuda")
     wall = time.perf_counter() - t0
@@ -423,18 +689,35 @@ def phase_dmap(at):
     return y
 
 
+# ``python -m annembed_tpu_torch.cli`` run by runpy, the process's kernel
+# launches printed to stderr at its exit
+_CLI_COUNTED = (
+    "import atexit, json, runpy, sys\n"
+    "from annembed_tpu_torch.ops import dense_sweep as ds, top1\n"
+    "atexit.register(lambda: print('launches: ' + json.dumps(dict(\n"
+    "    top1_l2=top1.top1_l2.launches,\n"
+    "    dense_sweep=ds.dense_attraction_rows.launches\n"
+    "    + ds.dense_kick_rows.launches)), file=sys.stderr, flush=True))\n"
+    "runpy.run_module('annembed_tpu_torch.cli', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
 def _run_cli(args):
+    """The CLI with ``args``: (its last stdout line's JSON, its kernel
+    launches, wall seconds)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "annembed_tpu_torch.cli",
-                           *args], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=600)
+    proc = subprocess.run([sys.executable, "-c", _CLI_COUNTED, *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"cli {args[0]} exited {proc.returncode}:\n"
                              f"{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+    launches = next(json.loads(line[len("launches: "):]) for line in
+                    proc.stderr.splitlines() if line.startswith("launches: "))
+    return json.loads(proc.stdout.strip().splitlines()[-1]), launches, wall
 
 
 def _csv_rows(path: Path) -> int:
@@ -443,7 +726,8 @@ def _csv_rows(path: Path) -> int:
 
 
 def phase_cli():
-    """Phase 7: the CLI on a 20,000 x 784 csv with a '#' header."""
+    """Phase 7: the CLI on a 20,000 x 784 csv with a '#' header.
+    Returns the dense sweep kernel's launches in ``embed``."""
     from annembed_tpu_torch.bench import MIN_CLUSTER_SIZE
     from annembed_tpu_torch.io.synthetic import synthetic_clustered_manifold
     with tempfile.TemporaryDirectory() as tmp:
@@ -451,11 +735,15 @@ def phase_cli():
         src = d / "manifold.csv"
         np.savetxt(src, synthetic_clustered_manifold(CLI_ROWS, 784), fmt="%d",
                    delimiter=",", header="synthetic clustered manifold")
-        out, wall = _run_cli(["embed", "--csv", str(src), "--nbng", "6",
-                              "--quality", "--stats", "--cluster",
-                              str(MIN_CLUSTER_SIZE), "--outfile",
-                              str(d / "embedded.csv"), "--device", "cuda"])
-        log(f"cli embed: wall={wall:.2f} s {json.dumps(out)}")
+        out, launches, wall = _run_cli(
+            ["embed", "--csv", str(src), "--nbng", "6", "--quality",
+             "--stats", "--cluster", str(MIN_CLUSTER_SIZE), "--outfile",
+             str(d / "embedded.csv"), "--device", "cuda"])
+        log(f"cli embed: wall={wall:.2f} s launches {json.dumps(launches)} "
+            f"{json.dumps(out)}")
+        if launches["dense_sweep"] < 1:
+            raise AssertionError("cli embed never launched the dense sweep "
+                                 "kernel")
         keys = {"quality", "cluster", "intrinsic_dim", "intrinsic_dim_2nn",
                 "hubness_skew", "hubness_hist"}
         if not keys <= set(out) or out["n"] != CLI_ROWS:
@@ -465,12 +753,14 @@ def phase_cli():
             rows = _csv_rows(d / name)
             if rows != CLI_ROWS:
                 raise AssertionError(f"{name}: {rows} rows, not {CLI_ROWS}")
-        out, wall = _run_cli(["dmapembed", "--csv", str(src), "--outfile",
-                              str(d / "dmap.csv"), "--device", "cuda"])
+        out, _, wall = _run_cli(["dmapembed", "--csv", str(src),
+                                 "--outfile", str(d / "dmap.csv"),
+                                 "--device", "cuda"])
         log(f"cli dmapembed: wall={wall:.2f} s {json.dumps(out)}")
         rows = _csv_rows(d / "dmap.csv")
         if out["n"] != CLI_ROWS or rows != CLI_ROWS:
             raise AssertionError(f"cli dmapembed: n={out['n']}, {rows} rows")
+    return launches["dense_sweep"]
 
 
 def _clear_ties(dist: np.ndarray) -> np.ndarray:
@@ -488,7 +778,8 @@ def phase_metrics(at):
     """Phase 8: ``embed(distance=...)`` under each non-L2 metric on
     20,000 x 784 blobs (the bench's width; probability rows for Jeffreys
     and Jensen-Shannon), its graph held against the CPU search of the
-    same rows on a sample."""
+    same rows on a sample.  Returns the dense sweep kernel's launches
+    per metric."""
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.knn.brute import knn_search_brute
     from annembed_tpu_torch.ops.top1 import top1_l2
@@ -496,14 +787,16 @@ def phase_metrics(at):
     prob = x / x.sum(1, keepdims=True)
     sample = np.sort(np.random.default_rng(0).choice(
         METRIC_ROWS, METRIC_SAMPLE, replace=False))
+    launches = {}
     for metric in ("DistL1", "DistCosine", "DistJeffreys",
                    "DistJensenShannon"):
         data = prob if metric in ("DistJeffreys", "DistJensenShannon") else x
-        top1_l2.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         y, info = at.embed(data, dim=2, nbng=KNN_K, distance=metric,
                            return_graph=True, device="cuda")
         wall = time.perf_counter() - t0
+        launches[metric] = dense_launches()
         g = info["kgraph"]
         gi = g.indices.cpu().numpy()[sample]
         gd = g.dists.cpu().numpy()[sample]
@@ -526,13 +819,18 @@ def phase_metrics(at):
             f"{wall:.2f} s; {METRIC_SAMPLE} rows vs CPU ({cpu_s:.2f} s): "
             f"id agreement {agree:.5f} outside {int((~clear).sum())} "
             f"near-tie columns, max rel dist err {float(d_err.max()):.3e}, "
-            f"{bad_d} dists out of tol; top1_l2 launches={top1_l2.launches}")
+            f"{bad_d} dists out of tol; top1_l2 launches={top1_l2.launches}, "
+            f"dense sweep launches={launches[metric]}")
         if y.shape != (METRIC_ROWS, 2) or not np.isfinite(y).all():
             raise AssertionError(f"{metric}: embedding {y.shape} or "
                                  "non-finite")
         if agree < METRIC_MIN_AGREE or bad_d:
             raise AssertionError(f"{metric}: CUDA graph disagrees with the "
                                  "CPU search")
+        if launches[metric] < 1:
+            raise AssertionError(f"{metric}: the dense sweep kernel never "
+                                 "launched")
+    return launches
 
 
 def phase_sampling(at):
@@ -549,7 +847,7 @@ def phase_sampling(at):
     for prefix, x in rows.items():
         tag = f"sampling {prefix or 'blobs_'}row"
         BACKENDS.clear()
-        top1_l2.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         y, info = at.embed(
             x, params=at.EmbedderParams(optimizer="sampling"),
@@ -686,7 +984,8 @@ def phase_estimators(at, x):
 def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     """``embed(x, layer=1)`` at the Higgs operating point on the rows of
     CUDA tensor ``x``, launch counts from zero, held to a finite (n, 2)
-    output, one kernel launch at least, graph recall and label purity."""
+    output, one launch at least of each kernel, graph recall and label
+    purity.  Returns (top-1 launches, dense sweep launches, info, y)."""
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
     from annembed_tpu_torch.ops.top1 import top1_l2
@@ -694,7 +993,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     x_host = x.cpu().numpy()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    top1_l2.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y, info = at.embed(
         x_host, batch=batches, knn_params=at.KnnParams(**knn),
@@ -702,6 +1001,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         **HIGGS_EMBED, **extra)
     wall = time.perf_counter() - t0
     launches = top1_l2.launches
+    dense = dense_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     first = info["first_step"]
     # what is left of the total: edge probabilities, the jittered
@@ -720,7 +1020,8 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     log(f"{tag}: first step ce {first['initial_ce']:.6g} -> "
         f"{first['final_ce']:.6g} ({first['sweeps']} sweeps); large step ce "
         f"{info['initial_ce']:.6g} -> {info['final_ce']:.6g} "
-        f"({info['sweeps']} sweeps); top1_l2 launches={launches}")
+        f"({info['sweeps']} sweeps); top1_l2 launches={launches}, dense "
+        f"sweep launches={dense}")
     log(f"{tag}: projection distance quantiles "
         f"{json.dumps(info['projection_distance_quantiles'])}")
     if "quality" in info:
@@ -739,11 +1040,13 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: embedding {y.shape} or non-finite")
     if launches < 1:
         raise AssertionError(f"{tag} never launched top1_l2")
+    if dense < 1:
+        raise AssertionError(f"{tag} never launched the dense sweep kernel")
     if recall < min_recall:
         raise AssertionError(f"{tag}: recall@{KNN_K} {recall} < {min_recall}")
     if purity < MIN_PURITY:
         raise AssertionError(f"{tag}: label purity {purity} < {MIN_PURITY}")
-    return launches, info, y
+    return launches, dense, info, y
 
 
 def rank_checksum(t: torch.Tensor) -> int:
@@ -861,7 +1164,7 @@ def phase_full_quality(at, y, graph, frac_sampled):
     from annembed_tpu_torch.ops.top1 import top1_l2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    top1_l2.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     est = at.quality_estimate(graph, y, nbng=QUALITY_NBNG,
                               radius_k=QUALITY_NBNG)
@@ -978,7 +1281,8 @@ def phase_a3_rest(at, graph):
 def phase_parts(at, x):
     """The parts of the IVF build against exact search on the card.
     Returns the 3-D embedding, its graph (on the host) and the IVF
-    route's full-fraction frac_without_match, for phase 15."""
+    route's full-fraction frac_without_match, for phase 15, and the dense
+    sweep kernel's launches in the embedding."""
     from annembed_tpu_torch.graph.kgraph import KGraph
     from annembed_tpu_torch.knn.api import build_kgraph, sampled_exact_recall
     from annembed_tpu_torch.knn.ivf import knn_graph_ivf
@@ -1021,8 +1325,15 @@ def phase_parts(at, x):
     del cloud, gi, gd
     # the full-fraction quality estimate of a 3-D embedding above the
     # limit: its radius through the IVF rebuild, against the exact search
+    reset_launches()
     y3, info = at.embed(x[:QUALITY_ROWS].cpu().numpy(), dim=3, nbng=KNN_K,
                         batch=5, seed=SEED, return_graph=True, device="cuda")
+    dense = dense_launches()
+    log(f"parts: {QUALITY_ROWS} x 3 embedding, {info['sweeps']} sweeps, "
+        f"dense sweep launches={dense}")
+    if dense < 1:
+        raise AssertionError("the 3-D embedding never launched the dense "
+                             "sweep kernel")
     y3 = torch.from_numpy(y3).to(dev)
     out = {}
     for name, limit in (("ivf", at.KnnParams().brute_force_limit),
@@ -1044,7 +1355,8 @@ def phase_parts(at, x):
         raise AssertionError(f"quality no_match through the IVF radius "
                              f"differs by {rel:.4f} > {QUALITY_NO_MATCH_REL}")
     g3 = info["kgraph"]
-    return y3.cpu(), (g3.indices.cpu(), g3.dists.cpu()), out["ivf"][3]
+    return (y3.cpu(), (g3.indices.cpu(), g3.dists.cpu()), out["ivf"][3],
+            dense)
 
 
 def _run_harness(args):
@@ -1070,7 +1382,8 @@ def _resumed(port, rec) -> bool:
     """Both caches loaded; no build, no optimize, no kernel."""
     return (set(port["checkpoints"]) == {"graph_load_s", "embedding_load_s"}
             and "first_step" not in rec and "optimize_time" not in rec
-            and port["top1_l2_launches"] == 0)
+            and port["top1_l2_launches"] == 0
+            and port["dense_sweep_launches"] == 0)
 
 
 def phase_harness_tail(y, rec, port):
@@ -1102,7 +1415,7 @@ def phase_harness(labels, frac_s1):
     its caches written, then the same command again, which must load the
     projection and the embedding and run only the quality tail, then the
     tail at the harness's own quality defaults.  Returns the first run's
-    top-1 launches."""
+    top-1 and dense sweep launches."""
     from annembed_tpu_torch.io.checkpoint import load_embedding
     from annembed_tpu_torch.io.synthetic import label_purity
     with tempfile.TemporaryDirectory() as tmp:
@@ -1131,12 +1444,14 @@ def phase_harness(labels, frac_s1):
         f"({first['sweeps']}); frac_without_match {frac} vs phase 4's "
         f"{frac_s1} at S=1; recall@{KNN_K} {rec[f'recall@{KNN_K}']}; "
         f"embedded {KNN_K}-NN label purity {purity:.4f}; resumed in "
-        f"{again['wall_s']} s, launches {port2['top1_l2_launches']}")
+        f"{again['wall_s']} s, launches {port2['top1_l2_launches']}; dense "
+        f"sweep launches {port['dense_sweep_launches']}")
     if y.shape != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"harness embedding {tuple(y.shape)} or "
                              "non-finite")
-    if port["top1_l2_launches"] < 1:
-        raise AssertionError("the harness never launched top1_l2")
+    if port["top1_l2_launches"] < 1 or port["dense_sweep_launches"] < 1:
+        raise AssertionError("the harness never launched top1_l2 or the "
+                             "dense sweep kernel")
     if (rec["gather_reuse"], first["gather_reuse"]) != (
             HARNESS_GATHER_REUSE,) * 2:
         raise AssertionError("the harness's steps did not report "
@@ -1152,35 +1467,42 @@ def phase_harness(labels, frac_s1):
         raise AssertionError(
             f"harness frac_without_match {frac} is not S=1's {frac_s1} + "
             f"{HARNESS_FRAC_SHIFT} +- {HARNESS_FRAC_ABS}")
-    return port["top1_l2_launches"]
+    return port["top1_l2_launches"], port["dense_sweep_launches"]
 
 
 def phase_knobs_io(at):
     """Phase 12: ``embed(**bench.KNOB_EMBED)`` on the bench's blobs rows
     with each dense knob, held to the JAX package's no_match; a
     ``trace_dir`` capture; the rows through gzip IDX files and back; a
-    neighbourhood's BSON from the card against the CPU's."""
+    neighbourhood's BSON from the card against the CPU's.  Returns the
+    dense sweep kernel's launches per knob (none on the row-major scatter
+    path, which runs torch ops)."""
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io import mnist_io, ripser
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.ops.top1 import top1_l2
     x = synthetic_blobs(bench.N, bench.D, 42).astype(np.float32)
-    off = {}
+    off, launches = {}, {}
     for knob, kw in bench.DENSE_KNOBS.items():
-        top1_l2.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         y, info = at.embed(x, params=at.EmbedderParams(**kw), device="cuda",
                            **bench.KNOB_EMBED)
         wall = time.perf_counter() - t0
+        launches[knob] = dense_launches()
         no_match = int(info["quality"]["nb_without_match"])
         want = JAX_KNOB_NO_MATCH[knob]
         rel = abs(no_match - want) / want
         log(f"knob {knob} {json.dumps(kw)}: wall {wall:.2f} s, optimize "
             f"{info['optimize_time']:.3f} s ({info['sweeps']} sweeps); "
             f"no_match {no_match} vs JAX {want} ({rel:.4f} relative); "
-            f"mean_matched {info['quality']['mean_nb_matched']:.4f}")
+            f"mean_matched {info['quality']['mean_nb_matched']:.4f}; dense "
+            f"sweep launches {launches[knob]}")
         if y.shape != (bench.N, 2) or not np.isfinite(y).all():
             raise AssertionError(f"knob {knob}: {y.shape} or non-finite")
+        if (launches[knob] > 0) != kw.get("dense_scatter_free", True):
+            raise AssertionError(f"knob {knob}: {launches[knob]} dense "
+                                 "sweep launches")
         if rel > NO_MATCH_REL:
             off[knob] = rel
     with tempfile.TemporaryDirectory() as tmp:
@@ -1240,6 +1562,7 @@ def phase_knobs_io(at):
     if off:
         raise AssertionError(f"no_match off the JAX record by more than "
                              f"{NO_MATCH_REL}: {off}")
+    return launches
 
 
 def _mesh_rank(mesh, rows_path, y3, g3):
@@ -1255,7 +1578,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     out = {"rank": mesh.rank, "device": str(dev)}
     torch.cuda.reset_peak_memory_stats(dev)
     # (a) the hierarchical path at phase 4's operating point
-    top1_l2.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y, info = at.embed(
         load_rows(rows_path), batch=MAIN_BATCHES,
@@ -1266,6 +1589,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
         **{k: v for k, v in HIGGS_EMBED.items() if k != "device"})
     out["a_wall"] = time.perf_counter() - t0
     out["a_launches"] = top1_l2.launches
+    out["a_dense"] = dense_launches()
     out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     mine = torch.tensor([rank_checksum(torch.from_numpy(y).to(dev))],
                         dtype=torch.int64, device=dev)
@@ -1277,9 +1601,11 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     del y, g
     torch.cuda.empty_cache()
     # (b) the bench's one-step workload, sharded
+    reset_launches()
     t0 = time.perf_counter()
     rec, t, yb, _ = bench.run(bench.N, mesh=mesh)
     out["b_wall"] = time.perf_counter() - t0
+    out["b_dense"] = dense_launches()
     out["b_rec"], out["b_phases"] = rec, t
     out["b_finite"] = bool(torch.isfinite(yb).all()) and \
         tuple(yb.shape) == (bench.N, 2)
@@ -1306,7 +1632,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
                y_dmap):
     """Phase 15: the sharded path on every card, held to the single
     device's readings of phases 4, 5, 6 and 4's parts.  Returns the
-    ranks' top1_l2 launch counts in (a)."""
+    ranks' top1_l2 launch counts in (a) and their dense sweep kernel's
+    launches in (a) and (b)."""
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
@@ -1350,6 +1677,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     agree, rows, d_rel = graph_agreement(gi, gd, *graph4)
     frac = info["quality"]["frac_without_match"]
     launches = [r["a_launches"] for r in ranks]
+    dense = {"a": [r["a_dense"] for r in ranks],
+             "b": [r["b_dense"] for r in ranks]}
     sums = [r["a_checksums"] for r in ranks]
     log(f"mesh (a): recall@{KNN_K}={recall:.4f} purity={purity:.4f}; large "
         f"graph vs phase 4's: {agree:.6f} of the clear columns equal, {rows} "
@@ -1357,7 +1686,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
         f"frac_without_match {frac} vs phase 4's {frac_s1} ({frac - frac_s1:+.5f}"
         f", band +-{MESH_FRAC_ABS}); embedding checksums {sums[0]} (every "
         f"rank's gather equal: {all(s == sums[0] for s in sums)}); top1_l2 "
-        f"launches {launches}")
+        f"launches {launches}; dense sweep launches (a) {dense['a']}, (b) "
+        f"{dense['b']}")
     if tuple(y.shape) != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError("mesh (a): embedding shape or non-finite")
     if recall < MIN_RECALL_IVF or purity < MIN_PURITY:
@@ -1370,9 +1700,10 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     if not within_band(frac, frac_s1, MESH_FRAC_ABS):
         raise AssertionError(f"mesh (a): frac_without_match {frac} vs "
                              f"{frac_s1}")
-    if min(launches) < 1 or info["n_devices"] != w:
-        raise AssertionError(f"mesh (a): launches {launches}, n_devices "
-                             f"{info['n_devices']}")
+    if min(launches) < 1 or min(dense["a"] + dense["b"]) < 1 or \
+            info["n_devices"] != w:
+        raise AssertionError(f"mesh (a): launches {launches}, dense {dense}, "
+                             f"n_devices {info['n_devices']}")
     # (b)
     rec = r0["b_rec"]
     rel = abs(rec["no_match"] - JAX_NO_MATCH) / JAX_NO_MATCH
@@ -1405,7 +1736,7 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
                              "off the single device's")
     if w > 1:
         phase_mesh_entry(at, w)
-    return launches
+    return launches, dense
 
 
 def phase_mesh_entry(at, w):
@@ -1456,12 +1787,15 @@ def main() -> int:
     from annembed_tpu_torch.parallel.launch import save_rows
     disable_tf32()
 
-    # phase 2: build the kernel from this checkout's sources
+    # phase 2: build the kernels from this checkout's sources, one nvcc
+    # each, all started together
     t0 = time.perf_counter()
-    _build.load_library("top1_l2")
-    log(f"build: top1_l2.cu -> {_build.library_path('top1_l2')} in "
-        f"{time.perf_counter() - t0:.2f} s; ptxas:\n"
-        f"{_build.build_log('top1_l2').strip()}")
+    _build.build_libraries(KERNEL_SOURCES)
+    for name in KERNEL_SOURCES:
+        _build.load_library(name)
+        log(f"build: {name}.cu -> {_build.library_path(name)}; ptxas:\n"
+            f"{_build.build_log(name).strip()}")
+    log(f"build: {time.perf_counter() - t0:.2f} s")
 
     # phase 3: kernel against twin and library at the path's shapes
     t0 = time.perf_counter()
@@ -1500,11 +1834,14 @@ def main() -> int:
         "ragged", torch.randn(77, 5, generator=gen).to(dev),
         torch.randn(131, 5, generator=gen).to(dev), reps=5))
     log(f"phase 3: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sweep_shapes = phase_dense_sweep()
+    log(f"phase 3b (dense sweep kernel): {time.perf_counter() - t0:.2f} s")
 
     # phase 4: the main path at full size, then the exact hierarchical
     # path at a smaller depth, then the parts of the IVF build
     t0 = time.perf_counter()
-    launches, main_info, y = _hierarchical(
+    launches, main_dense, main_info, y = _hierarchical(
         at, x, labels, MAIN_BATCHES, HIGGS_KNN, MIN_RECALL_IVF, "main path",
         with_quality=True, quality_fraction=QUALITY_FRACTION,
         quality_nbng=QUALITY_NBNG)
@@ -1530,20 +1867,20 @@ def main() -> int:
     del graph, main_info
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    exact_launches, _, _ = _hierarchical(
+    exact_launches, exact_dense, _, _ = _hierarchical(
         at, x[:EXACT_ROWS].contiguous(), labels[:EXACT_ROWS], EXACT_BATCHES,
         dict(knbn=KNN_K), MIN_RECALL, "exact path")
     log(f"phase 4 (exact path): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    y3, g3, frac3 = phase_parts(at, x)
+    y3, g3, frac3, parts_dense = phase_parts(at, x)
     log(f"phase 4 (parts): {time.perf_counter() - t0:.2f} s")
     del x
     torch.cuda.empty_cache()
 
-    phase_bench()
+    bench_dense = phase_bench()
     y_dmap = phase_dmap(at)
-    phase_cli()
-    phase_metrics(at)
+    cli_dense = phase_cli()
+    metric_dense = phase_metrics(at)
     t0 = time.perf_counter()
     blobs = phase_sampling(at)
     log(f"phase 9 (sampling path): {time.perf_counter() - t0:.2f} s")
@@ -1553,15 +1890,15 @@ def main() -> int:
     del blobs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    harness_launches = phase_harness(labels, frac_s1)
+    harness_launches, harness_dense = phase_harness(labels, frac_s1)
     log(f"phase 11 (harness): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    phase_knobs_io(at)
+    knob_dense = phase_knobs_io(at)
     log(f"phase 12 (dense knobs, IO): {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_launches = phase_mesh(at, rows_path, labels, graph4, frac_s1, y3,
-                               g3, frac3, y_dmap)
+    mesh_launches, mesh_dense = phase_mesh(at, rows_path, labels, graph4,
+                                           frac_s1, y3, g3, frac3, y_dmap)
     work.cleanup()
     log(f"phase 15 (mesh of {torch.cuda.device_count()}): "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1572,7 +1909,7 @@ def main() -> int:
     # each); every shape of phase 3 is in "shapes"
     path_launches = {"higgs_11m": launches, "exact_200k": exact_launches,
                      "slice_1m": None, "bench_rows": None, "ragged": None}
-    log(json.dumps({"kernels": [{
+    top1 = {
         "name": "top1_l2", "route": "cuda",
         "source": "annembed_tpu_torch/csrc/top1_l2.cu",
         "replaces": "annembed_tpu/ops/top1.py:24",
@@ -1585,7 +1922,28 @@ def main() -> int:
         "harness_launches": harness_launches,
         "mesh_launches_by_rank": mesh_launches,
         "shapes": [dict(s, launches=path_launches[s["shape"]])
-                   for s in shapes]}]}))
+                   for s in shapes]}
+    # the dense sweep's numbers are those of phase 4's large step (one
+    # sweep of 11M rows); launches count both launches of every sweep
+    large = sweep_shapes[0]
+    sweep = {
+        "name": "dense_sweep", "route": "cuda",
+        "source": "annembed_tpu_torch/csrc/dense_sweep.cu",
+        "replaces": "annembed_tpu/optim/dense.py:272,406",
+        "replaces_note": "an XLA fusion of jnp code; the JAX package has "
+                         "no Pallas kernel for the sweep",
+        "launches": main_dense, "max_abs_err": large["max_abs_err"],
+        "ms": large["ms"], "plain_ms": large["twin_ms"],
+        "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],
+        "library_ms": None,
+        "launches_by_path": {
+            "main_path": main_dense, "exact_path": exact_dense,
+            "parts_3d": parts_dense, "bench": bench_dense, "cli": cli_dense,
+            "metrics": metric_dense, "harness": harness_dense,
+            "knobs": knob_dense},
+        "mesh_launches_by_rank": mesh_dense,
+        "shapes": sweep_shapes}
+    log(json.dumps({"kernels": [top1, sweep]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

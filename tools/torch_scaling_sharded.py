@@ -11,11 +11,11 @@ panels, 4 NN-descent rounds at rho 0.5, sampled quality at fraction
 one card each, for each W of ``--meshes`` that the host has cards for.
 Per W it reports the graph build, its IVF join, the first and the large
 step, milliseconds a large-step sweep, the total, each rank's peak
-memory, and the all-gather of the (2, n) embedding's row blocks as the
-sharded sweep issues it (mean of 50 after 5 warm-ups, CUDA events,
-gather and reorder); it checks that every rank holds the same embedding
-and counts the rows of the large graph that differ from the first mesh
-size's.
+memory, the all-gather of the (n, 2) embedding's row blocks as the
+sharded sweep issues it (mean of 50 after 5 warm-ups, CUDA events), and
+each rank's launches of the top-1 kernel and of the dense sweep kernel
+pair; it checks that every rank holds the same embedding and counts the
+rows of the large graph that differ from the first mesh size's.
 One JSON line per W on stdout, then the card's name and power limit.
 Needs CUDA.
 """
@@ -44,14 +44,12 @@ GATHER_REPS = 50
 
 
 def _gather_ms(mesh, n: int, dim: int = 2) -> float:
-    """Milliseconds of one all-gather of this rank's (dim, n / W) block
-    into the (dim, n) embedding, as the sharded sweep does it."""
-    m = n // mesh.size
-    rows = torch.randn(dim, m, device=mesh.device)
+    """Milliseconds of one all-gather of this rank's (n / W, dim) block
+    into the (n, dim) embedding, as the sharded sweep does it."""
+    rows = torch.randn(n // mesh.size, dim, device=mesh.device)
 
     def gather():
-        out = mesh.all_gather_rows(rows)
-        return out.view(mesh.size, dim, m).transpose(0, 1).reshape(dim, -1)
+        return mesh.all_gather_rows(rows)
 
     for _ in range(5):
         gather()
@@ -69,11 +67,11 @@ def _gather_ms(mesh, n: int, dim: int = 2) -> float:
 def _rank(mesh, rows_path: str):
     import annembed_tpu_torch as at
     from annembed_tpu_torch.ops.top1 import top1_l2
-    from chip_smoke import rank_checksum
+    from chip_smoke import dense_launches, rank_checksum, reset_launches
     from annembed_tpu_torch.parallel.launch import load_rows
     dev = mesh.device
     torch.cuda.reset_peak_memory_stats(dev)
-    top1_l2.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y, info = at.embed(load_rows(rows_path), knn_params=at.KnnParams(**KNN),
                        params=at.EmbedderParams(grad_factor=5,
@@ -86,7 +84,8 @@ def _rank(mesh, rows_path: str):
                         device=dev)
     sums = mesh.all_gather_rows(mine).tolist()
     out = dict(rank=mesh.rank, wall=wall, peak_gib=peak,
-               launches=top1_l2.launches, checksums=sums,
+               launches=top1_l2.launches, dense=dense_launches(),
+               checksums=sums,
                gather_ms=_gather_ms(mesh, y.shape[0]))
     if mesh.rank == 0:
         out.update(info=info, graph=(g.indices.cpu(), g.dists.cpu()))
@@ -113,6 +112,7 @@ def _record(w, ranks, n):
         "total_s": info["total_time"],
         "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
         "launches_by_rank": [r["launches"] for r in ranks],
+        "dense_launches_by_rank": [r["dense"] for r in ranks],
         "frac_without_match": info["quality"]["frac_without_match"],
         "ranks_bit_equal": all(r["checksums"] == r0["checksums"]
                                and len(set(r["checksums"])) == 1
@@ -160,9 +160,10 @@ def main(argv=None) -> int:
             print(json.dumps(rec), flush=True)
     print(smi)
     bad = [r["W"] for r in records
-           if not r["ranks_bit_equal"] or min(r["launches_by_rank"]) < 1]
+           if not r["ranks_bit_equal"] or min(r["launches_by_rank"]) < 1
+           or min(r["dense_launches_by_rank"]) < 1]
     if bad:
-        print(f"ranks disagree or never launched the kernel at W={bad}",
+        print(f"ranks disagree or never launched a kernel at W={bad}",
               file=sys.stderr)
         return 1
     return 0
