@@ -48,8 +48,7 @@ from annembed_tpu_torch.io.csv_io import (get_toembed_from_csv,
 from annembed_tpu_torch.io.synthetic import (synthetic_clustered_manifold,
                                              synthetic_higgs)
 from annembed_tpu_torch.knn.api import sampled_exact_recall
-from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
-                                                dense_kick_rows)
+from annembed_tpu_torch.ops.dense_sweep import launch_counts
 from annembed_tpu_torch.ops.top1 import top1_l2
 
 #: ``info`` fields the JAX harness's record does not carry
@@ -245,8 +244,9 @@ def main(argv=None) -> int:
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
     port["top1_l2_launches"] = top1_l2.launches
-    port["dense_sweep_launches"] = (dense_attraction_rows.launches
-                                    + dense_kick_rows.launches)
+    counts = launch_counts()
+    port["dense_sweep_launches"] = counts["pair"] + counts["persistent"]
+    port["dense_sweep_counts"] = counts
     if args.quality:
         port["quality_radius"] = at.quality_estimate.last_radius_search
     port["peak_host_rss_gib"] = (resource.getrusage(resource.RUSAGE_SELF)

@@ -1,21 +1,24 @@
-"""One sub-sweep of the dense CE optimizer as two fused launches.
+"""Sub-sweeps of the dense CE optimizer as hand-written kernels.
 
 ``dense_attraction_rows`` moves the rows [lo, lo + rows) of an (n, d)
 embedding by the closed-form attraction of their edges of one column
 group; ``dense_kick_rows`` then gives those rows their n_neg repulsion
-kicks against the post-attraction snapshot.  On CUDA tensors each
-launches its hand-written kernel of ``csrc/dense_sweep.cu`` (a failed
+kicks against the post-attraction snapshot: one sweep, two launches.
+``dense_sweeps`` runs a run of whole-array sweeps, each with its own
+gamma, pool offset and column group, in one persistent launch.  On CUDA
+tensors each launches its kernel of ``csrc/dense_sweep.cu`` (a failed
 build or launch raises); on CPU tensors each runs its plain twin, which
 is composed of optim/dense.py's ``_attraction_sweep_sfT`` and
 ``_repulsion_block_T``, the ports of annembed_tpu/optim/dense.py:272 and
 :406 (an XLA fusion in the JAX package: it has no Pallas kernel for the
 sweep).
 
-Layout (the kernel's): coordinates are row-major (n, d); the edge tables
-of the rows are (kg, rows) and the neighbour table (k, rows), int32 ids
-in [0, n); ``scale`` and ``neg_weight`` are (n,).  The twins take the
-same arguments and transpose to the (d, n) layout of optim/dense.py, so
-on the CPU they give what that module's sweeps give, bit for bit.
+Layout (the kernel's): coordinates are row-major (n, d); a group's edge
+tables are one int32 record a row (``pack_groups``); the neighbour table
+is (k, rows), int32 ids in [0, n); ``scale`` and ``neg_weight`` are
+(n,).  The twins take the same arguments and transpose to the (d, n)
+layout of optim/dense.py, so on the CPU they give what that module's
+sweeps give, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +31,47 @@ import torch
 
 from ._build import load_library
 
-_F32, _I32 = torch.float32, torch.int32
+_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+#: the fields of an edge record, kg words each
+EDGE_FIELDS = ("idx", "w", "m", "w_rev", "m_rev", "scale_j")
+
+
+def edge_words(kg: int) -> int:
+    """Words of a row's edge record of kg edges: 6 kg, padded to 16
+    bytes."""
+    return -(-len(EDGE_FIELDS) * kg // 4) * 4
+
+
+def pack_groups(idx, w, m, w_rev, m_rev, scale, n_groups: int = 1):
+    """The (rows, k) edge tables of every column group (columns
+    [c kg, (c + 1) kg), kg = k // n_groups) as one int32 record a row:
+    the kg ids, then w, m, w_rev, m_rev and the neighbours' scales
+    ``scale[idx]`` as float32 bits, kg words each, zero-padded to
+    ``edge_words(kg)``.  Returns (n_groups, rows, words) int32 on idx's
+    device."""
+    rows, k = idx.shape
+    kg = k // n_groups
+    fields = len(EDGE_FIELDS) * kg
+    out = torch.empty((n_groups, rows, edge_words(kg)), dtype=_I32,
+                      device=idx.device)
+    out[:, :, fields:] = 0
+    bits = out.view(_F32)
+    for c in range(n_groups):
+        sl = slice(c * kg, (c + 1) * kg)
+        out[c, :, :kg] = idx[:, sl]
+        for f, t in enumerate((w, m, w_rev, m_rev), start=1):
+            bits[c, :, f * kg:(f + 1) * kg] = t[:, sl]
+        bits[c, :, 5 * kg:6 * kg] = scale[idx[:, sl].to(_I64)]
+    return out
+
+
+def unpack_edges(edges):
+    """The six (kg, rows) tables of one group's ``pack_groups`` records
+    (rows, words): idx int32, the others float32, each contiguous."""
+    kg = edges.shape[1] // len(EDGE_FIELDS)
+    tables = [edges[:, f * kg:(f + 1) * kg].T.contiguous()
+              for f in range(len(EDGE_FIELDS))]
+    return [tables[0]] + [t.view(_F32) for t in tables[1:]]
 
 
 def _need(name, t, dtype, shape, device):
@@ -42,6 +85,17 @@ def _need(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(d: int, edges=None, **rows):
+    """The kernel reads edge records as 16-byte words and, at d = 2 only,
+    a row as one 8-byte word; at any other d a row slice may start
+    anywhere (a node block at an odd row of a 3-D embedding does)."""
+    if edges is not None and edges.data_ptr() % 16:
+        raise ValueError("edges must be 16-byte aligned")
+    for name, t in rows.items():
+        if d == 2 and t is not None and t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned at d = 2")
+
+
 def _check_rows(y, lo: int, rows: int):
     if y.dim() != 2 or y.shape[1] == 0:
         raise ValueError(f"y must be (n, d) with d > 0, got "
@@ -53,21 +107,28 @@ def _check_rows(y, lo: int, rows: int):
                          f"{y.shape[0]})")
 
 
-def _check_attraction(y, y_src, lo, idx, w, m, w_rev, m_rev, scale_j,
-                      scale, mask):
-    if idx.dim() != 2:
-        raise ValueError(f"idx must be (kg, rows), got {tuple(idx.shape)}")
-    _check_rows(y, lo, idx.shape[1])
-    dev, table = y.device, tuple(idx.shape)
+def _check_edges(edges, rows, device):
+    kg = edges.shape[1] // len(EDGE_FIELDS)
+    if kg < 1:
+        raise ValueError(f"edges must be (rows, words) records, got "
+                         f"{tuple(edges.shape)}")
+    _need("edges", edges, _I32, (rows, edge_words(kg)), device)
+    return kg
+
+
+def _check_attraction(y, y_src, lo, edges, scale, mask):
+    if edges.dim() != 2:
+        raise ValueError(f"edges must be (rows, words), got "
+                         f"{tuple(edges.shape)}")
+    _check_rows(y, lo, edges.shape[0])
+    dev = y.device
+    kg = _check_edges(edges, edges.shape[0], dev)
     _need("y", y, _F32, tuple(y.shape), dev)
     _need("y_src", y_src, _F32, tuple(y.shape), dev)
-    _need("idx", idx, _I32, table, dev)
-    for name, t in (("w", w), ("m", m), ("w_rev", w_rev), ("m_rev", m_rev),
-                    ("scale_j", scale_j)):
-        _need(name, t, _F32, table, dev)
     _need("scale", scale, _F32, (y.shape[0],), dev)
     if mask is not None:
-        _need("mask", mask, _F32, table, dev)
+        _need("mask", mask, _F32, (kg, edges.shape[0]), dev)
+    return kg
 
 
 def _check_kick(y, a, lo, offset, idx_full, scale, n_neg, neg_weight, out):
@@ -89,6 +150,34 @@ def _check_kick(y, a, lo, offset, idx_full, scale, n_neg, neg_weight, out):
         raise TypeError(f"offset must be an int, got {type(offset)}")
 
 
+def _check_sweeps(y, y_src, edges, scale, gammas, offsets, groups, n_neg,
+                  idx_full, neg_weight):
+    if edges.dim() != 3:
+        raise ValueError(f"edges must be (groups, n, words), got "
+                         f"{tuple(edges.shape)}")
+    _check_rows(y, 0, y.shape[0])
+    dev, n = y.device, y.shape[0]
+    _need("y", y, _F32, tuple(y.shape), dev)
+    if y_src is not None:
+        _need("y_src", y_src, _F32, tuple(y.shape), dev)
+    if edges.shape[1] != n:
+        raise ValueError(f"edges has shape {tuple(edges.shape)}, not "
+                         f"(groups, {n}, words)")
+    _check_edges(edges[0], n, dev)
+    if not edges.is_contiguous():
+        raise ValueError("edges must be contiguous")
+    steps = gammas.shape[0] if gammas.dim() == 1 else -1
+    _need("gammas", gammas, _F32, (steps,), dev)
+    _need("offsets", offsets, _I64, (steps,), dev)
+    _need("groups", groups, _I32, (steps,), dev)
+    _need("idx_full", idx_full, _I32, (idx_full.shape[0], n), dev)
+    _need("scale", scale, _F32, (n,), dev)
+    if neg_weight is not None:
+        _need("neg_weight", neg_weight, _F32, (n,), dev)
+    if n_neg < 1:
+        raise ValueError(f"n_neg must be >= 1, got {n_neg}")
+
+
 def _exponents(b: float):
     """b, b - 1 and 2 b as the twins' scalars reach f32 (computed in
     double, then rounded)."""
@@ -96,33 +185,41 @@ def _exponents(b: float):
         float(np.float32(2.0 * b))
 
 
-@functools.cache
-def _kernels():
-    lib = load_library("dense_sweep")
+def _bind(lib):
+    """The three launchers of a built ``dense_sweep`` library, typed."""
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
     att = lib.dense_attraction_launch
-    att.argtypes = [ptr] * 11 + [i64, i64, i32, i32] + [f32] * 6 + [ptr]
+    att.argtypes = [ptr] * 6 + [i64, i64, i32, i32, i32] + [f32] * 6 + [ptr]
     att.restype = ctypes.c_int
     kick = lib.dense_kick_launch
     kick.argtypes = ([ptr] * 6 + [i64, i64, i64, i32, i32, i64, i64, i32]
                      + [f32] * 4 + [i32, i32, i32, ptr])
     kick.restype = ctypes.c_int
-    return att, kick
+    sweeps = lib.dense_sweeps_launch
+    sweeps.argtypes = ([ptr] * 4 + [i64] + [ptr] * 6
+                       + [i64, i64, i32, i32, i32, i32, i64, i32]
+                       + [f32] * 4 + [i32, i32, ptr])
+    sweeps.restype = ctypes.c_int
+    return att, kick, sweeps
+
+
+@functools.cache
+def _kernels():
+    return _bind(load_library("dense_sweep"))
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _attraction_args(y, y_src, lo, idx, w, m, w_rev, m_rev, scale_j, scale,
-                     gamma, b, f_min, mask, mask_p, out):
+def _attraction_args(y, y_src, lo, edges, scale, gamma, b, f_min, mask,
+                     mask_p, out):
     """dense_attraction_launch's arguments, all but the stream."""
-    kg, rows = idx.shape
-    return (*map(_ptr, (y, y_src, idx, w, m, w_rev, m_rev, scale_j, scale,
-                        mask, out)),
-            rows, lo, kg, y.shape[1], gamma, *_exponents(b), f_min,
-            1.0 / mask_p)
+    rows, words = edges.shape
+    return (*map(_ptr, (y, y_src, edges, scale, mask, out)),
+            rows, lo, words // len(EDGE_FIELDS), y.shape[1], words, gamma,
+            *_exponents(b), f_min, 1.0 / mask_p)
 
 
 def _kick_args(y, a, lo, offset, idx_full, scale, gamma, b, n_neg,
@@ -135,22 +232,43 @@ def _kick_args(y, a, lo, offset, idx_full, scale, gamma, b, n_neg,
             int(neighbor_exclusion), int(parallel_kicks), int(flat))
 
 
+def _sweeps_args(y, y_src, a, edges, scale, gammas, offsets, groups, b,
+                 n_neg, idx_full, f_min, neg_weight, neighbor_exclusion,
+                 parallel_kicks):
+    """dense_sweeps_launch's arguments, all but the stream."""
+    n, d = y.shape
+    _, _, words = edges.shape
+    return (*map(_ptr, (y, y if y_src is None else y_src, a, edges)),
+            n * words,
+            *map(_ptr, (scale, neg_weight, idx_full, gammas, offsets,
+                        groups)),
+            gammas.shape[0], n, words // len(EDGE_FIELDS), idx_full.shape[0],
+            d, words, max(1, n // n_neg), n_neg, *_exponents(b), f_min,
+            int(neighbor_exclusion), int(parallel_kicks))
+
+
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def dense_attraction_rows_reference(y, y_src, lo: int, idx, w, m, w_rev,
-                                    m_rev, scale_j, scale, gamma: float,
-                                    b: float, f_min: float = 1e-3,
-                                    mask=None, mask_p: float = 1.0):
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"dense {what} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def dense_attraction_rows_reference(y, y_src, lo: int, edges, scale,
+                                    gamma: float, b: float,
+                                    f_min: float = 1e-3, mask=None,
+                                    mask_p: float = 1.0):
     """Plain twin of the attraction kernel: ``_attraction_sweep_sfT`` on
     the rows [lo, lo + rows) of ``y``, their neighbours read from
     ``y_src`` (``y`` itself, or a stale snapshot).  Returns the (rows, d)
     moved rows."""
     from ..optim.dense import _attraction_sweep_sfT
-    _check_attraction(y, y_src, lo, idx, w, m, w_rev, m_rev, scale_j, scale,
-                      mask)
-    rows = idx.shape[1]
+    _check_attraction(y, y_src, lo, edges, scale, mask)
+    rows = edges.shape[0]
+    idx, w, m, w_rev, m_rev, scale_j = unpack_edges(edges)
     own = y[lo:lo + rows].T.contiguous()
     delta = _attraction_sweep_sfT(
         y_src.T.contiguous(), idx, w, m, w_rev, m_rev,
@@ -159,36 +277,34 @@ def dense_attraction_rows_reference(y, y_src, lo: int, idx, w, m, w_rev,
     return (own + delta).T.contiguous()
 
 
-def dense_attraction_rows(y, y_src, lo: int, idx, w, m, w_rev, m_rev,
-                          scale_j, scale, gamma: float, b: float,
-                          f_min: float = 1e-3, mask=None,
+def dense_attraction_rows(y, y_src, lo: int, edges, scale, gamma: float,
+                          b: float, f_min: float = 1e-3, mask=None,
                           mask_p: float = 1.0):
     """The attraction half of a sweep for the rows [lo, lo + rows),
-    rows = idx.shape[1]: y, y_src (n, d) float32; idx (kg, rows) int32;
-    w, m, w_rev, m_rev, scale_j (the neighbours' scales), mask (or None)
-    (kg, rows) float32; scale (n,).  Returns a new (rows, d) tensor.
+    rows = edges.shape[0]: y, y_src (n, d) float32; edges (rows, words)
+    int32 records of the rows' kg edges of one group (``pack_groups``);
+    mask (or None) (kg, rows) float32; scale (n,).  Returns a new
+    (rows, d) tensor.
 
     CUDA tensors launch the kernel (each launch adds one to
     ``dense_attraction_rows.launches``); CPU tensors run
     ``dense_attraction_rows_reference``."""
     if y.device.type != "cuda":
         return dense_attraction_rows_reference(
-            y, y_src, lo, idx, w, m, w_rev, m_rev, scale_j, scale, gamma, b,
-            f_min=f_min, mask=mask, mask_p=mask_p)
-    _check_attraction(y, y_src, lo, idx, w, m, w_rev, m_rev, scale_j, scale,
-                      mask)
-    out = torch.empty((idx.shape[1], y.shape[1]), dtype=_F32,
+            y, y_src, lo, edges, scale, gamma, b, f_min=f_min, mask=mask,
+            mask_p=mask_p)
+    _check_attraction(y, y_src, lo, edges, scale, mask)
+    out = torch.empty((edges.shape[0], y.shape[1]), dtype=_F32,
                       device=y.device)
     if out.shape[0] == 0:
         return out
-    att, _ = _kernels()
+    _check_aligned(y.shape[1], edges, y=y, y_src=y_src)
+    att = _kernels()[0]
     with torch.cuda.device(y.device):
-        err = att(*_attraction_args(y, y_src, lo, idx, w, m, w_rev, m_rev,
-                                    scale_j, scale, gamma, b, f_min, mask,
-                                    mask_p, out), _stream(y.device))
-    if err != 0:
-        raise RuntimeError(f"dense attraction kernel launch failed: CUDA "
-                           f"error {err}")
+        err = att(*_attraction_args(y, y_src, lo, edges, scale, gamma, b,
+                                    f_min, mask, mask_p, out),
+                  _stream(y.device))
+    _raise_on(err, "attraction")
     dense_attraction_rows.launches += 1
     return out
 
@@ -258,16 +374,102 @@ def dense_kick_rows(y, a, lo: int, offset: int, idx_full, scale,
         out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
-    _, kick = _kernels()
+    _check_aligned(y.shape[1], y=y, a=a, out=out)
+    kick = _kernels()[1]
     with torch.cuda.device(y.device):
         err = kick(*_kick_args(y, a, lo, offset, idx_full, scale, gamma, b,
                                n_neg, neg_weight, neighbor_exclusion,
                                parallel_kicks, flat, out), _stream(y.device))
-    if err != 0:
-        raise RuntimeError(f"dense kick kernel launch failed: CUDA error "
-                           f"{err}")
+    _raise_on(err, "kick")
     dense_kick_rows.launches += 1
     return out
 
 
 dense_kick_rows.launches = 0
+
+
+def dense_sweeps_reference(y, y_src, edges, scale, gammas, offsets, groups,
+                           b: float, n_neg: int, idx_full,
+                           f_min: float = 1e-3, neg_weight=None,
+                           neighbor_exclusion: bool = True,
+                           parallel_kicks: bool = False):
+    """Plain twin of the persistent launch: for each sweep s, the
+    attraction twin of every row with group ``groups[s]``'s records and
+    ``gammas[s]``, its neighbours read from ``y_src`` (None: y itself),
+    then the kick twin of every row at ``offsets[s]``, formed flat and
+    written into ``y``.  Returns ``y``."""
+    _check_sweeps(y, y_src, edges, scale, gammas, offsets, groups, n_neg,
+                  idx_full, neg_weight)
+    for gamma, offset, group in zip(gammas.tolist(), offsets.tolist(),
+                                    groups.tolist()):
+        a = dense_attraction_rows_reference(
+            y, y if y_src is None else y_src, 0, edges[group], scale, gamma,
+            b, f_min=f_min)
+        dense_kick_rows_reference(
+            y, a, 0, offset, idx_full, scale, gamma, b, n_neg,
+            neg_weight=neg_weight, neighbor_exclusion=neighbor_exclusion,
+            parallel_kicks=parallel_kicks, flat=True, out=y)
+    return y
+
+
+def dense_sweeps(y, y_src, edges, scale, gammas, offsets, groups, b: float,
+                 n_neg: int, idx_full, f_min: float = 1e-3, neg_weight=None,
+                 neighbor_exclusion: bool = True,
+                 parallel_kicks: bool = False):
+    """``gammas.shape[0]`` whole-array sweeps of ``y`` (n, d) float32, in
+    place: sweep s moves every row by the attraction of its edges of
+    group ``groups[s]`` (``edges`` (groups, n, words), one
+    ``pack_groups`` table a group), neighbours read from ``y_src`` (a
+    snapshot, or None: y itself), then gives it its n_neg kicks at pool
+    offset ``offsets[s]`` (in [0, n)), both at ``gammas[s]``; ``gammas``
+    float32, ``offsets`` int64, ``groups`` int32, (steps,) each on y's
+    device.  Returns ``y``.
+
+    CUDA tensors run every sweep in one cooperative launch (adding one to
+    ``dense_sweeps.launches`` and the sweeps to ``dense_sweeps.sweeps``);
+    a launch the card refuses raises.  CPU tensors run
+    ``dense_sweeps_reference``."""
+    if y.device.type != "cuda":
+        return dense_sweeps_reference(
+            y, y_src, edges, scale, gammas, offsets, groups, b, n_neg,
+            idx_full, f_min=f_min, neg_weight=neg_weight,
+            neighbor_exclusion=neighbor_exclusion,
+            parallel_kicks=parallel_kicks)
+    _check_sweeps(y, y_src, edges, scale, gammas, offsets, groups, n_neg,
+                  idx_full, neg_weight)
+    steps = gammas.shape[0]
+    if steps == 0:
+        return y
+    _check_aligned(y.shape[1], edges, y=y, y_src=y_src)
+    a = torch.empty_like(y)
+    sweeps = _kernels()[2]
+    with torch.cuda.device(y.device):
+        err = sweeps(*_sweeps_args(y, y_src, a, edges, scale, gammas,
+                                   offsets, groups, b, n_neg, idx_full,
+                                   f_min, neg_weight, neighbor_exclusion,
+                                   parallel_kicks), _stream(y.device))
+    _raise_on(err, "persistent sweep")
+    dense_sweeps.launches += 1
+    dense_sweeps.sweeps += steps
+    return y
+
+
+dense_sweeps.launches = 0
+dense_sweeps.sweeps = 0
+
+
+def launch_counts() -> dict:
+    """The sweep kernels' launches since the last reset: ``pair`` (both
+    halves of every per-sweep pair), ``persistent`` launches and the
+    ``persistent_sweeps`` they ran."""
+    return dict(pair=(dense_attraction_rows.launches
+                      + dense_kick_rows.launches),
+                persistent=dense_sweeps.launches,
+                persistent_sweeps=dense_sweeps.sweeps)
+
+
+def reset_launch_counts() -> None:
+    dense_attraction_rows.launches = 0
+    dense_kick_rows.launches = 0
+    dense_sweeps.launches = 0
+    dense_sweeps.sweeps = 0

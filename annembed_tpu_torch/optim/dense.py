@@ -14,12 +14,14 @@ derivation).  In short, per sub-sweep of the default path:
   * gamma decays as grad_step * (1 - batch/nb_grad_batch); the final
     batch (gamma = 0) is skipped.
 
-Each sweep of the transposed path runs as two launches of the CUDA
-kernel pair in ``ops/dense_sweep.py`` on the card, and on the CPU as
-their twins, which call the per-sweep functions below in the JAX
-package's (d, n) layout.  ``dense_optimize`` keeps the kernel's layout:
-coordinates row-major (n, d), each group's edge tables (kg, n), built
-once per call.  The relabel permutation and the per-sweep offsets come
+The transposed path runs on the CUDA kernels of ``ops/dense_sweep.py``
+on the card, and on the CPU on their twins, which call the per-sweep
+functions below in the JAX package's (d, n) layout: whole-array sweeps
+one persistent launch a run (a segment, or a stale-gather block), node
+blocks and edge masks two launches a sweep (``launch_plan``).
+``dense_optimize`` keeps the kernel's layout: coordinates row-major
+(n, d), each group's edge tables one packed record a row, built once
+per call.  The relabel permutation and the per-sweep offsets come
 from a ``torch.Generator``, or are passed in (tests feed the JAX
 package's draws).
 
@@ -50,7 +52,8 @@ import torch
 from ..graph.kgraph import KGraph
 from ..graph.proba import NodeParams
 from ..params import PROBA_MIN, EmbedderParams
-from ..ops.dense_sweep import dense_attraction_rows, dense_kick_rows
+from ..ops.dense_sweep import (dense_attraction_rows, dense_kick_rows,
+                                dense_sweeps, pack_groups)
 from .ce import NB_NEGATIVE, _common_coeff, embedded_scales_from_initial
 
 
@@ -413,7 +416,6 @@ def dense_optimize(y0, indices, w, m_visit, w_rev, m_rev_visit, emb_scale,
     elif len(offsets) != total_steps:
         raise ValueError(f"{len(offsets)} offsets for {total_steps} sweeps")
     dev = y0.device
-    idx64 = indices.to(torch.int64)
 
     def gamma_of(s):
         return _gamma(grad_step_init, batch0 + s // n_sub + 1, nb_grad_batch)
@@ -429,67 +431,97 @@ def dense_optimize(y0, indices, w, m_visit, w_rev, m_rev_visit, emb_scale,
 
     if not scatter_free:
         return _row_major_sweeps(
-            y0, idx64, w, m_visit, w_rev, m_rev_visit, emb_scale, neg_weight,
-            b, n_neg, n_groups, f_min, mask_p, total_steps, offsets,
-            gamma_of, rot_of, mask_of)
+            y0, indices.to(torch.int64), w, m_visit, w_rev, m_rev_visit,
+            emb_scale, neg_weight, b, n_neg, n_groups, f_min, mask_p,
+            total_steps, offsets, gamma_of, rot_of, mask_of)
 
-    # the kernel's layout, built once: y row-major (n, d), each group's
-    # edge tables (kg, rows) and the neighbour ids (k, rows) in int32
+    # the kernel's layout, built once: y row-major (n, d), one packed edge
+    # record a row per column group (n_groups, n, words), the neighbour
+    # ids (k, n) in int32
     idx32 = indices.to(torch.int32)
     scale = emb_scale.to(torch.float32).contiguous()
     nw = (None if neg_weight is None
           else neg_weight.to(torch.float32).contiguous())
+    edges = pack_groups(idx32, w, m_visit, w_rev, m_rev_visit, scale,
+                        n_groups)
+    kick = dict(neg_weight=nw, neighbor_exclusion=neighbor_exclusion,
+                parallel_kicks=parallel_kicks)
 
-    def columns(c, lo=0, hi=n):
-        sl = slice(c * kg, (c + 1) * kg)
-        return dict(idx=idx32[lo:hi, sl].T.contiguous(),
-                    w=w[lo:hi, sl].T.contiguous(),
-                    m=m_visit[lo:hi, sl].T.contiguous(),
-                    w_rev=w_rev[lo:hi, sl].T.contiguous(),
-                    m_rev=m_rev_visit[lo:hi, sl].T.contiguous(),
-                    scale_j=scale[idx64[lo:hi, sl]].T.contiguous())
-
-    def sweep(y, s, gd, lo, idx_full, y_src=None, flat=False):
+    def sweep(y, s, lo, rows, idx_full, y_src=None, flat=False):
         # the attraction of rows [lo, lo + rows), then their kicks
         # against the post-attraction snapshot, written back into y
         gamma = gamma_of(s)
-        rows = gd["idx"].shape[1]
         a = dense_attraction_rows(
-            y, y if y_src is None else y_src, lo, gd["idx"], gd["w"],
-            gd["m"], gd["w_rev"], gd["m_rev"], gd["scale_j"], scale, gamma,
-            b, f_min=f_min, mask=mask_of((kg, rows)), mask_p=mask_p)
+            y, y if y_src is None else y_src, lo,
+            edges[rot_of(s, n_groups * n_blocks) // n_blocks, lo:lo + rows],
+            scale, gamma, b, f_min=f_min, mask=mask_of((kg, rows)),
+            mask_p=mask_p)
         dense_kick_rows(y, a, lo, int(offsets[s]), idx_full, scale, gamma, b,
-                        n_neg, neg_weight=nw,
-                        neighbor_exclusion=neighbor_exclusion,
-                        parallel_kicks=parallel_kicks, flat=flat,
-                        out=y[lo:lo + rows])
+                        n_neg, flat=flat, out=y[lo:lo + rows], **kick)
 
     y = y0.to(torch.float32).contiguous().clone()
+    plan = launch_plan(total_steps, n, n_groups, n_blocks, n_sub,
+                       nb_grad_batch, batch0, gather_reuse,
+                       gather_reuse_after, mask_p)
     if n_blocks > 1:
-        blocks = [(lo, idx32[lo:hi].T.contiguous())
+        blocks = [(lo, hi - lo, idx32[lo:hi].T.contiguous())
                   for lo, hi in _block_bounds(n, n_blocks)]
-        gb = [(columns(c, lo, lo + full.shape[1]), lo, full)
-              for c in range(n_groups) for lo, full in blocks]
         for s in range(total_steps):
-            sweep(y, s, *gb[rot_of(s, n_groups * n_blocks)])
+            sweep(y, s, *blocks[rot_of(s, n_groups * n_blocks) % n_blocks])
         return y
 
     idx_full = idx32.T.contiguous()                    # (k, n)
-    groups = [columns(c) for c in range(n_groups)]
-    for pos, seg_steps, s_r in _segments(
-            total_steps, n, n_groups, n_blocks, n_sub, nb_grad_batch, batch0,
-            gather_reuse, gather_reuse_after):
-        snap = None
-        for s in range(pos, pos + seg_steps):
-            # the stale gather: the neighbours of s_r sweeps are read
-            # from a snapshot taken at the block's first sweep, the
-            # column-group rotation unchanged; blocks restart at the
-            # segment
-            if s_r > 1 and (s - pos) % s_r == 0:
-                snap = y.clone()
-            sweep(y, s, groups[rot_of(s, n_groups)], 0, idx_full,
-                  y_src=snap, flat=True)
+    if plan["route"] == "persistent":
+        # each run's gamma, pool offset and column group, on the device
+        gammas = torch.tensor([gamma_of(s) for s in range(total_steps)],
+                              dtype=torch.float32, device=dev)
+        offs = torch.tensor([int(o) % n for o in offsets], dtype=torch.int64,
+                            device=dev)
+        grps = torch.tensor([rot_of(s, n_groups) for s in range(total_steps)],
+                            dtype=torch.int32, device=dev)
+    for first, count, stale in plan["runs"]:
+        # the stale gather: the neighbours of a run are read from a
+        # snapshot taken at its first sweep, the column-group rotation
+        # unchanged; runs restart at each segment
+        snap = y.clone() if stale else None
+        if plan["route"] == "persistent":
+            run = slice(first, first + count)
+            dense_sweeps(y, snap, edges, scale, gammas[run], offs[run],
+                         grps[run], b, n_neg, idx_full, f_min=f_min, **kick)
+            continue
+        for s in range(first, first + count):
+            sweep(y, s, 0, n, idx_full, y_src=snap, flat=True)
     return y
+
+
+def launch_plan(total_steps: int, n: int, n_groups: int, n_blocks: int,
+                n_sub: int, nb_grad_batch: int, batch0: int,
+                gather_reuse: int, gather_reuse_after: float,
+                mask_p: float) -> dict:
+    """How the scatter-free path of ``dense_optimize`` runs its sweeps on
+    the card: ``route`` "persistent" (whole-array sweeps, one
+    ``dense_sweeps`` launch a run) or "pair" (node blocks, or the
+    per-sweep edge masks of ``mask_p`` < 1, drawn on the host: two
+    launches a sweep); ``runs`` the (first sweep, sweeps, stale) of
+    ``_segments``: with S > 1 one run a stale-gather block, which reads
+    its neighbours from a snapshot of its first sweep, else one run a
+    segment."""
+    gather_reuse = max(int(gather_reuse), 1)
+    runs = []
+    if n_blocks > 1:
+        runs.append((0, total_steps, False))
+    else:
+        for pos, seg_steps, s_r in _segments(
+                total_steps, n, n_groups, n_blocks, n_sub, nb_grad_batch,
+                batch0, gather_reuse, gather_reuse_after):
+            if s_r == 1:
+                runs.append((pos, seg_steps, False))
+                continue
+            for first in range(pos, pos + seg_steps, s_r):
+                runs.append((first, min(s_r, pos + seg_steps - first),
+                             True))
+    route = "pair" if n_blocks > 1 or mask_p < 1.0 else "persistent"
+    return dict(route=route, runs=runs)
 
 
 def _row_major_sweeps(y0, idx64, w, m_visit, w_rev, m_rev_visit, emb_scale,

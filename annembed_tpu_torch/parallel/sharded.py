@@ -352,57 +352,40 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
     of ``mask_p`` < 1 come from ``mask_generator``, this rank's own
     stream.
 
-    Returns ``segment(y0, indices, w, m_visit, w_rev, m_rev, emb_scale,
-    neg_weight, offsets, step0, rot0)``: y0 (n, dim) replicated, the
-    edge tables this rank's (m, k) rows, emb_scale and neg_weight (None:
-    all ones) replicated, ``offsets`` one pool offset per sweep.  The
+    Returns ``segment(y0, tables, offsets, step0, rot0)``: y0 (n, dim)
+    replicated, ``tables`` the kernels' layout of this rank's (m, k) edge
+    tables with the replicated scales and hubness weights
+    (``segment_tables``), ``offsets`` one pool offset per sweep.  The
     result is (n, dim), replicated."""
     from ..ops.dense_sweep import dense_attraction_rows, dense_kick_rows
     from ..optim.dense import _gamma
     del packed_gather
 
-    def segment(y0, indices, w, m_visit, w_rev, m_rev, emb_scale,
-                neg_weight, offsets, step0: int, rot0: int):
-        m, k = indices.shape
-        if k % n_groups:
-            raise ValueError(f"k={k} must be divisible by "
-                             f"n_groups={n_groups}")
+    def segment(y0, tables, offsets, step0: int, rot0: int):
+        groups, idx_full = tables["edges"], tables["idx_full"]
+        scale, nw = tables["scale"], tables["neg_weight"]
+        k, m = idx_full.shape
+        if groups.shape[0] != n_groups:
+            raise ValueError(f"tables of {groups.shape[0]} column groups, "
+                             f"not n_groups={n_groups}")
         if len(offsets) != seg_steps:
             raise ValueError(f"{len(offsets)} offsets for {seg_steps} "
                              "sweeps")
         kg = k // n_groups
         r0 = mesh.rank * m
-        # the kernel's layout, built once a segment: y (n, dim), this
-        # rank's edge tables (kg, m) and neighbour ids (k, m), int32
-        idx = indices.to(torch.int32)
-        idx_full = idx.T.contiguous()                    # global ids
-        scale = emb_scale.to(torch.float32).contiguous()
-        nw = (None if neg_weight is None
-              else neg_weight.to(torch.float32).contiguous())
-        groups = []
-        for c in range(n_groups):
-            sl = slice(c * kg, (c + 1) * kg)
-            groups.append(dict(
-                idx=idx[:, sl].T.contiguous(), w=w[:, sl].T.contiguous(),
-                m=m_visit[:, sl].T.contiguous(),
-                w_rev=w_rev[:, sl].T.contiguous(),
-                m_rev=m_rev[:, sl].T.contiguous(),
-                scale_j=scale[idx[:, sl].to(torch.int64)].T.contiguous()))
 
         def sweep(y, local, y_src):
             s = step0 + local
             gamma = _gamma(grad_step_init, batch0 + s // n_sub + 1,
                            nb_grad_batch)
             c = (rot0 + local if use_rot0 else s) % n_groups
-            gd = groups[c]
             mask = None
             if mask_p < 1.0:
                 mask = (torch.rand((kg, m), generator=mask_generator,
                                    device=mask_generator.device) < mask_p
                         ).to(y.device, torch.float32)
             rows = dense_attraction_rows(
-                y, y_src, r0, gd["idx"], gd["w"], gd["m"], gd["w_rev"],
-                gd["m_rev"], gd["scale_j"], scale, gamma, b, f_min=f_min,
+                y, y_src, r0, groups[c], scale, gamma, b, f_min=f_min,
                 mask=mask, mask_p=mask_p)
             y = mesh.all_gather_rows(rows)
             # the kicks read the post-attraction snapshot, own rows too
@@ -424,6 +407,25 @@ def make_sharded_dense_segment(mesh: Mesh, b: float, n_sub: int, n_neg: int,
         return y
 
     return segment
+
+
+def segment_tables(indices, w, m_visit, w_rev, m_rev, emb_scale, neg_weight,
+                   n_groups: int) -> dict:
+    """The sweep kernels' layout of a rank's (m, k) edge tables, which
+    every segment of a schedule phase shares: the packed edge records
+    (n_groups, m, words), the neighbour ids (k, m) int32 (global ids),
+    and the scales and hubness weights (n,) float32 (None: all ones)."""
+    from ..ops.dense_sweep import pack_groups
+    if indices.shape[1] % n_groups:
+        raise ValueError(f"k={indices.shape[1]} must be divisible by "
+                         f"n_groups={n_groups}")
+    idx = indices.to(torch.int32)
+    scale = emb_scale.to(torch.float32).contiguous()
+    return dict(edges=pack_groups(idx, w, m_visit, w_rev, m_rev, scale,
+                                  n_groups),
+                idx_full=idx.T.contiguous(), scale=scale,
+                neg_weight=(None if neg_weight is None else
+                            neg_weight.to(torch.float32).contiguous()))
 
 
 def sharded_dense_optimize(y0, g, npar, params, mesh: Mesh,
@@ -526,6 +528,9 @@ def sharded_dense_optimize(y0, g, npar, params, mesh: Mesh,
             args = list(shard)
             if scale_m != 1.0:
                 args[2], args[4] = args[2] * scale_m, args[4] * scale_m
+            # the kernels' layout of the phase's tables, once for all of
+            # its segments
+            tables = segment_tables(*args, emb_scale, neg_weight, n_groups)
             made = {}
             # the per-device program cap of the JAX package: the row
             # shard's sweep cost, not the padded global n
@@ -546,8 +551,7 @@ def sharded_dense_optimize(y0, g, npar, params, mesh: Mesh,
                         neighbor_exclusion=bool(p.dense_neighbor_exclusion),
                         mask_generator=mask_gen)
                 y = made[(seg_steps, s_r)](
-                    y, *args, emb_scale, neg_weight,
-                    offs[pos:pos + seg_steps], pos, sweeps + pos)
+                    y, tables, offs[pos:pos + seg_steps], pos, sweeps + pos)
         sweeps += total
         batch_cursor += nbp
     if offsets is not None and len(offsets) != sweeps:

@@ -17,14 +17,23 @@ CUDA device it exits 1 before printing any result):
    the exact path's projection; 1M x 40k x 28; 70k x 3.5k x 784 on the
    bench's rows; a ragged 77 x 131 x 5), timed in turns with its
    yardstick and beside its bound;
-3b. the dense sweep kernel pair (``ops/dense_sweep.py``) against its
-   twins, one sweep from the same input held after the attraction half,
-   after the kicks and for the kicks alone, two launches bit-equal, timed
-   in turns with the twins beside ``sweep_bounds``: phase 4's large step
-   (11,000,000 rows) and first step (440,000), the bench's graph, and one
-   small case per knob (a node block whose partner windows wrap past n,
-   parallel kicks, edge masks, a stale snapshot, b = 1.5, no neighbour
-   exclusion, d = 3, d = 5);
+3b. the dense sweep kernels (``ops/dense_sweep.py``) against their
+   twins: the per-sweep pair, one sweep from the same input held after
+   the attraction half, after the kicks and for the kicks alone, two
+   launches bit-equal, timed in turns with the twins beside
+   ``sweep_bounds`` (each half also alone at the path's shapes): phase
+   4's large step (11,000,000 rows) and first step (440,000), the bench's
+   graph, and one small case per knob (a node block whose partner windows
+   wrap past n, parallel kicks, edge masks, a stale snapshot, b = 1.5, no
+   neighbour exclusion, d = 3, d = 5); the persistent launch over a run
+   of sweeps (60 at 11M, 200 at 440,000 and on the bench's graph; 20 per
+   knob) held bit-equal to itself, to the pair over the same sweeps and,
+   at the path's shapes, to the twin (per knob its first sweep within
+   the pair's band), timed a sweep in turns with the pair;
+   ``dense_optimize``'s counts per knob against its ``launch_plan``, and
+   its node blocks at d = 3 (rows from an odd start) against the CPU;
+   ``torch.profiler`` over a large-step and a first-step segment,
+   persistent and pair;
 4. the main path: ``embed(x, layer=1)`` on 11,000,000 x 28 Higgs-shaped
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
@@ -98,9 +107,12 @@ CUDA device it exits 1 before printing any result):
    with W > 1, (b) once more through ``embed(n_devices=W)``.
 
 Before each path the kernel launch counts are set to 0 and read after it;
-every dense path (phases 4, 5, 7, 8, 11, 12 but the row-major scatter
-knob, 15 on every rank) must launch the dense sweep kernel pair, the
-CLI's and the harness's processes reporting their own counts.
+every dense path must launch the dense sweep kernels by its route, the
+CLI's and the harness's processes reporting their own counts: whole-array
+sweeps (phases 4, 5, 7, 8, 11, 12's other knobs) only through the
+persistent launch, phase 4's every sweep; node blocks (phase 12) and
+every rank of the mesh (phase 15) only through the pair; the row-major
+scatter knob through neither.
 The last line is one JSON object:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -168,6 +180,12 @@ H100_BYTES_PER_S, H100_TF32_FLOPS, H100_F32_FLOPS = 3.35e12, 495e12, 67e12
 SWEEP_ATT_REL, SWEEP_REL = 1e-5, 1e-4
 SWEEP_LARGE_ROWS, SWEEP_FIRST_ROWS = N_ROWS, 440_000
 SWEEP_SMALL_ROWS = 5_003
+# the persistent launch (one cooperative launch a run of sweeps) over
+# this many sweeps at the large step, at the first step and the bench's
+# graph, and per knob: held bit-equal to the pair over the same sweeps,
+# and at the path's three shapes to the twin (max abs err 0)
+PERSISTENT_LARGE_STEPS, PERSISTENT_SMALL_STEPS = 60, 200
+PERSISTENT_KNOB_STEPS = 20
 
 # phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
 # workload with the same exact f32 graph, the mean of seeds 0 / 1 / 2
@@ -254,8 +272,11 @@ HARNESS_TAIL_FRACTION, HARNESS_SEED = min(1.0, 200_000 / N_ROWS), 0
 ADAPTIVE_TIME, ADAPTIVE_LEAD, ADAPTIVE_REL = 32, 10, 1e-3
 STATS_CPU_REL = 1e-6
 # phase 15: the mesh path's bands against the single device: the sampled
-# frac_without_match of the 11M embedding (the dense sweeps are not
-# bit-reproducible; phase 11's band), the full fraction of the 300k 3-D
+# frac_without_match of the 11M embedding (phase 11's band: the sweep
+# kernels are deterministic, but the mesh's graph agrees with phase 4's
+# only outside near-ties and its sharded spectral init sums in another
+# order, and the expansive sweep map carries such differences into
+# another embedding of the same dynamics), the full fraction of the 300k 3-D
 # embedding (the same graph rebuild, sharded), the diffusion coordinates
 # up to sign (tests/test_parallel.py::test_dmap_embed_mesh_matches_single)
 MESH_FRAC_ABS, MESH_FULL_FRAC_ABS, MESH_DMAP_ATOL = 0.005, 0.001, 5e-3
@@ -402,19 +423,36 @@ def check_kernel(name, q, c, reps, once=False):
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
-                                                    dense_kick_rows)
+    from annembed_tpu_torch.ops.dense_sweep import reset_launch_counts
     from annembed_tpu_torch.ops.top1 import top1_l2
     top1_l2.launches = 0
-    dense_attraction_rows.launches = 0
-    dense_kick_rows.launches = 0
+    reset_launch_counts()
+
+
+def dense_counts() -> dict:
+    """The dense sweep kernels' counts since the last reset: ``pair``
+    (both halves of every per-sweep pair), ``persistent`` launches and
+    ``persistent_sweeps``."""
+    from annembed_tpu_torch.ops.dense_sweep import launch_counts
+    return launch_counts()
 
 
 def dense_launches() -> int:
-    """The dense sweep kernel pair's launches since the last reset."""
-    from annembed_tpu_torch.ops.dense_sweep import (dense_attraction_rows,
-                                                    dense_kick_rows)
-    return dense_attraction_rows.launches + dense_kick_rows.launches
+    """Every dense sweep kernel launch since the last reset."""
+    counts = dense_counts()
+    return counts["pair"] + counts["persistent"]
+
+
+def require_route(tag, counts, route) -> None:
+    """The dense sweeps of a path went through ``route``: "persistent"
+    (persistent launches and no pair), "pair" (pairs and no persistent
+    launch) or None (no dense sweep kernel)."""
+    pair, persistent = counts["pair"] > 0, counts["persistent"] > 0
+    if (pair, persistent) != {"persistent": (False, True),
+                              "pair": (True, False),
+                              None: (False, False)}[route]:
+        raise AssertionError(f"{tag}: dense sweep launches {counts}, not "
+                             f"the {route} route")
 
 
 def sweep_bounds(n_rows, kg, k, n_neg, d, hub, exclusion=True, mask=False):
@@ -442,30 +480,32 @@ def sweep_bounds(n_rows, kg, k, n_neg, d, hub, exclusion=True, mask=False):
                 touched_ms=touched / H100_BYTES_PER_S * 1e3)
 
 
-def sweep_inputs(n, kg=3, k=6, d=2, hub=True, seed=0):
-    """One sweep's inputs on the card at phase 4's shapes: coordinates
+def sweep_inputs(n, k=6, d=2, hub=True, seed=0):
+    """A sweep's inputs on the card at phase 4's shapes: coordinates
     N(0, 3^2), neighbours uniform over the rows (the relabel permutation
     leaves them so), weights, multiplicities and scales in the ranges of
-    the Higgs graph's, half of the reverse weights zero."""
+    the Higgs graph's, half of the reverse weights zero; the edge records
+    of both column groups (kg 3)."""
+    from annembed_tpu_torch.ops.dense_sweep import pack_groups
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def u(shape, lo, hi):
         return torch.rand(shape, generator=g, device="cuda") * (hi - lo) + lo
 
-    idx_full = torch.randint(0, n, (k, n), generator=g, device="cuda",
-                             dtype=torch.int32)
-    w = u((kg, n), 0.05, 1.0)
-    w_rev = torch.where(u((kg, n), 0.0, 1.0) < 0.5, u((kg, n), 0.05, 1.0),
+    idx = torch.randint(0, n, (n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    w = u((n, k), 0.05, 1.0)
+    w_rev = torch.where(u((n, k), 0.0, 1.0) < 0.5, u((n, k), 0.05, 1.0),
                         torch.zeros((), device="cuda"))
     scale = u((n,), 0.5, 2.0)
-    idx = idx_full[:kg].contiguous()
     return dict(y=3.0 * torch.randn((n, d), generator=g, device="cuda"),
-                idx=idx, w=w, m=2.0 * w, w_rev=w_rev, m_rev=2.0 * w_rev,
-                scale_j=scale[idx.long()].contiguous(), scale=scale,
-                neg_weight=u((n,), 0.25, 4.0) if hub else None,
-                idx_full=idx_full, gamma=1.0, b=1.0, n_neg=5,
+                edges=pack_groups(idx, w, 2.0 * w, w_rev, 2.0 * w_rev, scale,
+                                  2),
+                scale=scale, neg_weight=u((n,), 0.25, 4.0) if hub else None,
+                idx_full=idx.T.contiguous(), gamma=1.0, b=1.0, n_neg=5,
                 offset=int(torch.randint(0, n, (), generator=g,
-                                         device="cuda")))
+                                         device="cuda")),
+                grad_step=2.0, n_sub=60, nb_grad_batch=40)
 
 
 def bench_sweep_inputs():
@@ -478,6 +518,7 @@ def bench_sweep_inputs():
     from annembed_tpu_torch.graph.proba import to_proba_edges
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.knn.brute import knn_graph_brute
+    from annembed_tpu_torch.ops.dense_sweep import pack_groups
     from annembed_tpu_torch.optim.dense import _gamma, prepare_dense_inputs
     from annembed_tpu_torch.params import EmbedderParams
     x = torch.from_numpy(synthetic_blobs(bench.N, bench.D, 42)
@@ -494,29 +535,26 @@ def bench_sweep_inputs():
         y0, gr, to_proba_edges(gr), params, bench.SCHEDULE[0][1], 2,
         generator=gen)
     idx = idx.to(torch.int32)
-    sl = slice(0, 3)
-
-    def group(t):
-        return t[:, sl].T.contiguous()
-
-    return dict(y=y.contiguous(), idx=group(idx), w=group(w), m=group(m),
-                w_rev=group(w_rev), m_rev=group(m_rev),
-                scale_j=scale[idx[:, sl].long()].T.contiguous(),
+    return dict(y=y.contiguous(),
+                edges=pack_groups(idx, w, m, w_rev, m_rev, scale, 2),
                 scale=scale.contiguous(), neg_weight=None,
                 idx_full=idx.T.contiguous(),
                 gamma=_gamma(params.grad_step, 1, params.nb_grad_batch),
                 b=1.0, n_neg=n_neg, offset=int(torch.randint(
-                    0, bench.N, (), generator=gen)), exclusion=False)
+                    0, bench.N, (), generator=gen)), exclusion=False,
+                grad_step=params.grad_step, n_sub=bench.SCHEDULE[0][1],
+                nb_grad_batch=params.nb_grad_batch)
 
 
 def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
                       mask=None, mask_p=1.0, parallel=False,
-                      exclusion=True, flat=None):
+                      exclusion=True, flat=None, split=False):
     """Phase 3b on one shape: the kernel pair and its twins from the same
-    input, held after the attraction half, after the kicks, and the kick
-    kernel alone on the twin's attraction; the kernel's sweep launched
-    twice, bit-equal; then timed in turns with the twin's (twin, kernel,
-    kernel, twin) beside ``sweep_bounds``."""
+    input (column group 0), held after the attraction half, after the
+    kicks, and the kick kernel alone on the twin's attraction; the
+    kernel's sweep launched twice, bit-equal; then timed in turns with
+    the twin's (twin, kernel, kernel, twin) beside ``sweep_bounds``, and
+    with ``split`` each half alone."""
     from annembed_tpu_torch.ops.dense_sweep import (
         dense_attraction_rows, dense_attraction_rows_reference,
         dense_kick_rows, dense_kick_rows_reference)
@@ -526,8 +564,8 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
     exclusion = inp.get("exclusion", exclusion)
     flat = (rows == n) if flat is None else flat
     sl = slice(lo, lo + rows)
-    tables = [inp[key][:, sl].contiguous() for key in
-              ("idx", "w", "m", "w_rev", "m_rev", "scale_j")]
+    edges = inp["edges"][0, sl]
+    kg = edges.shape[1] // 6
     mask = None if mask is None else mask[:, sl].contiguous()
     idx_full = inp["idx_full"][:, sl].contiguous()
     src = y if y_src is None else y_src
@@ -538,8 +576,7 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
 
     def sweep(attraction, kicks, a=None):
         if a is None:
-            a = attraction(y, src, lo, *tables, inp["scale"], gamma, b,
-                           **att)
+            a = attraction(y, src, lo, edges, inp["scale"], gamma, b, **att)
         return a, kicks(y, a, lo, inp["offset"], idx_full, inp["scale"],
                         gamma, b, n_neg, **kick)
 
@@ -565,10 +602,20 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
     ms_b = cuda_ms(kernel, reps)
     twin_b = cuda_ms(twin, reps)
     ms, twin_ms = (ms_a + ms_b) / 2, (twin_a + twin_b) / 2
-    bnd = sweep_bounds(rows, tables[0].shape[0], idx_full.shape[0], n_neg, d,
+    bnd = sweep_bounds(rows, kg, idx_full.shape[0], n_neg, d,
                        inp["neg_weight"] is not None, exclusion,
                        mask is not None)
-    out = dict(shape=name, n=n, rows=rows, lo=lo, d=d, kg=tables[0].shape[0],
+    halves = {}
+    if split:
+        a_k = dense_attraction_rows(y, src, lo, edges, inp["scale"], gamma, b,
+                                    **att)
+        halves = dict(attraction_ms=cuda_ms(lambda: dense_attraction_rows(
+            y, src, lo, edges, inp["scale"], gamma, b, **att), reps),
+            kick_ms=cuda_ms(lambda: dense_kick_rows(
+                y, a_k, lo, inp["offset"], idx_full, inp["scale"], gamma, b,
+                n_neg, **kick), reps))
+        del a_k
+    out = dict(shape=name, n=n, rows=rows, lo=lo, d=d, kg=kg,
                k=idx_full.shape[0], n_neg=n_neg,
                hub=inp["neg_weight"] is not None, exclusion=exclusion,
                parallel_kicks=parallel, stale=y_src is not None,
@@ -578,7 +625,7 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
                max_move=moved, bit_equal=bit_equal, ms=ms, twin_ms=twin_ms,
                bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
                touched_ms=bnd["touched_ms"],
-               share_of_bound=bnd["bound_ms"] / ms)
+               share_of_bound=bnd["bound_ms"] / ms, **halves)
     log(f"dense sweep {name}: n={n} rows={rows} lo={lo} d={d} "
         f"kg={out['kg']} k={out['k']} n_neg={n_neg} hub={out['hub']} "
         f"exclusion={exclusion} parallel={parallel} stale={out['stale']} "
@@ -589,7 +636,9 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
         f"twin_ms={twin_ms:.4f} bound_ms={bnd['bound_ms']:.4f} "
         f"({bnd['bound_by']}; touched {bnd['touched_ms']:.4f}) "
         f"share={bnd['bound_ms'] / ms:.4f}; turns twin {twin_a:.4f} kernel "
-        f"{ms_a:.4f} {ms_b:.4f} twin {twin_b:.4f}")
+        f"{ms_a:.4f} {ms_b:.4f} twin {twin_b:.4f}"
+        + (f"; attraction alone {halves['attraction_ms']:.4f} ms, kicks "
+           f"alone {halves['kick_ms']:.4f} ms" if split else ""))
     if not finite or att_err > SWEEP_ATT_REL * y_max or \
             max(err, kick_err) > SWEEP_REL * y_max or not bit_equal:
         raise AssertionError(
@@ -599,17 +648,287 @@ def check_dense_sweep(name, inp, reps, lo=0, rows=None, y_src=None,
     return out
 
 
+def sweep_plan(inp, steps, seed=0):
+    """A run of ``steps`` whole-array sweeps as ``dense_optimize`` plans
+    one: gamma by the global schedule from its first batch, random pool
+    offsets, the column groups alternating; device tensors."""
+    from annembed_tpu_torch.optim.dense import _gamma
+    n = inp["y"].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    gammas = [_gamma(inp["grad_step"], 1 + s // inp["n_sub"],
+                     inp["nb_grad_batch"]) for s in range(steps)]
+    return (torch.tensor(gammas, dtype=torch.float32, device="cuda"),
+            torch.randint(0, n, (steps,), generator=gen).to("cuda"),
+            (torch.arange(steps, dtype=torch.int32) % 2).to("cuda"))
+
+
+def check_persistent(name, inp, steps, reps, y_src=None, parallel=False,
+                     exclusion=True, exact=True):
+    """Phase 3b's persistent launch on one shape: ``steps`` sweeps from
+    the same input through one ``dense_sweeps`` launch, twice (bit-equal),
+    through the per-sweep pair as ``dense_optimize`` drives it (bit-equal)
+    and through its twin: max abs err 0 with ``exact``; else (over many
+    sweeps the expansive map amplifies any ulp past any band) the first
+    sweep alone within the pair's band, SWEEP_REL of max|y|.  Then timed
+    a sweep in turns with the pair (pair, persistent, persistent, pair)
+    beside ``sweep_bounds``."""
+    from annembed_tpu_torch.ops.dense_sweep import (
+        dense_attraction_rows, dense_kick_rows, dense_sweeps,
+        dense_sweeps_reference, launch_counts)
+    y0 = inp["y"]
+    n, d = y0.shape
+    exclusion = inp.get("exclusion", exclusion)
+    gammas, offsets, groups = plan = sweep_plan(inp, steps)
+    b, n_neg = inp["b"], inp["n_neg"]
+    knobs = dict(neg_weight=inp["neg_weight"], neighbor_exclusion=exclusion,
+                 parallel_kicks=parallel)
+    args = (inp["edges"], inp["scale"], *plan, b, n_neg, inp["idx_full"])
+    work = torch.empty_like(y0)
+    gamma_l, offset_l, group_l = (t.tolist() for t in plan)
+
+    def persistent():
+        work.copy_(y0)
+        return dense_sweeps(work, y_src, *args, **knobs)
+
+    def pair():
+        work.copy_(y0)
+        src = work if y_src is None else y_src
+        for g, o, c in zip(gamma_l, offset_l, group_l):
+            a = dense_attraction_rows(work, src, 0, inp["edges"][c],
+                                      inp["scale"], g, b)
+            dense_kick_rows(work, a, 0, o, inp["idx_full"], inp["scale"], g,
+                            b, n_neg, flat=True, out=work, **knobs)
+        return work
+
+    before = launch_counts()
+    got = persistent().clone()
+    counted = launch_counts()
+    again = persistent().clone()
+    by_pair = pair().clone()
+    twin = dense_sweeps_reference(y0.clone(), y_src, *args, **knobs)
+    first = (inp["edges"], inp["scale"], *(t[:1] for t in plan), b, n_neg,
+             inp["idx_full"])
+    first_err = float((dense_sweeps(y0.clone(), y_src, *first, **knobs)
+                       - dense_sweeps_reference(y0.clone(), y_src, *first,
+                                                **knobs)).abs().max())
+    torch.cuda.synchronize()
+    y_max = float(y0.abs().max())
+    err = float((got - twin).abs().max())
+    pair_err = float((got - by_pair).abs().max())
+    bit_equal = torch.equal(got, again)
+    finite = bool(torch.isfinite(got).all())
+    moved = float((got - y0).abs().max())
+    del got, again, by_pair, twin
+    pair_a = cuda_ms(pair, reps) / steps
+    ms_a = cuda_ms(persistent, reps) / steps
+    ms_b = cuda_ms(persistent, reps) / steps
+    pair_b = cuda_ms(pair, reps) / steps
+    ms, pair_ms = (ms_a + ms_b) / 2, (pair_a + pair_b) / 2
+    bnd = sweep_bounds(n, inp["edges"].shape[2] // 6, inp["idx_full"].shape[0],
+                       n_neg, d, inp["neg_weight"] is not None, exclusion)
+    out = dict(shape=name, n=n, d=d, steps=steps, n_neg=n_neg,
+               parallel_kicks=parallel, stale=y_src is not None, b=b,
+               exclusion=exclusion, max_abs_err=err,
+               first_sweep_max_abs_err=first_err, pair_max_abs_err=pair_err,
+               max_abs_y=y_max, max_move=moved, bit_equal=bit_equal,
+               launches=counted["persistent"] - before["persistent"],
+               sweeps=counted["persistent_sweeps"]
+               - before["persistent_sweeps"],
+               ms=ms, pair_ms=pair_ms, bound_ms=bnd["bound_ms"],
+               bound_by=bnd["bound_by"], touched_ms=bnd["touched_ms"],
+               share_of_bound=bnd["bound_ms"] / ms)
+    log(f"persistent {name}: n={n} d={d} {steps} sweeps n_neg={n_neg} "
+        f"parallel={parallel} stale={y_src is not None} b={b} "
+        f"exclusion={exclusion}: vs twin max abs err {err:.3e} (first "
+        f"sweep {first_err:.3e}), vs pair "
+        f"{pair_err:.3e}, two launches bit-equal {bit_equal} (max|y| "
+        f"{y_max:.3e}, largest move {moved:.3e}); one launch counted "
+        f"{out['launches']} with {out['sweeps']} sweeps; ms a sweep "
+        f"{ms:.4f} (pair {pair_ms:.4f}) bound_ms={bnd['bound_ms']:.4f} "
+        f"share={bnd['bound_ms'] / ms:.4f}; turns pair {pair_a:.4f} "
+        f"persistent {ms_a:.4f} {ms_b:.4f} pair {pair_b:.4f}")
+    if not finite or not bit_equal or pair_err != 0.0 or \
+            (out["launches"], out["sweeps"]) != (1, steps) or \
+            (exact and err != 0.0) or first_err > SWEEP_REL * y_max:
+        raise AssertionError(
+            f"persistent sweeps at {name}: twin err {err} (first sweep "
+            f"{first_err}), pair err "
+            f"{pair_err}, bit-equal {bit_equal}, finite {finite}, counted "
+            f"{out['launches']} launches of {out['sweeps']} sweeps")
+    return out
+
+
+def check_dispatch():
+    """``dense_optimize`` on the card, one small call per knob: the
+    kernel counts it adds are exactly its ``launch_plan``'s (the
+    persistent launch for whole-array sweeps, fresh and stale, stacked
+    kicks; the pair for node blocks and edge masks; none on the
+    row-major path)."""
+    from annembed_tpu_torch.optim.dense import dense_optimize, launch_plan
+    n, k = SWEEP_SMALL_ROWS, 6
+    g = torch.Generator(device="cuda").manual_seed(5)
+    idx = torch.randint(0, n, (n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand((n, k), generator=g, device="cuda")
+    args = (3.0 * torch.randn((n, 2), generator=g, device="cuda"), idx, w,
+            2.0 * w, w.flip(0), 2.0 * w.flip(0),
+            torch.rand((n,), generator=g, device="cuda") + 0.5, None)
+    plan_args = dict(total_steps=2 * 15, n=n, n_groups=2, n_sub=15,
+                     nb_grad_batch=4, batch0=0, gather_reuse_after=0.0)
+    knobs = {"default": dict(), "stale": dict(gather_reuse=4),
+             "parallel_kicks": dict(parallel_kicks=True),
+             "mask": dict(mask_p=0.7), "n_blocks": dict(n_blocks=3),
+             "row_major": dict(scatter_free=False)}
+    counts = {}
+    for knob, kw in knobs.items():
+        reset_launches()
+        y = dense_optimize(*args, grad_step_init=2.0, b=1.0, n_sub=15,
+                           n_neg=20, nb_grad_batch=4, n_groups=2, batch0=0,
+                           batch1=2,
+                           generator=torch.Generator().manual_seed(1),
+                           **kw)
+        torch.cuda.synchronize()
+        counts[knob] = dense_counts()
+        # the row-major knob runs torch ops; the scatter-free path two
+        # launches a sweep on the pair, one a run on the persistent route
+        plan = launch_plan(**plan_args, n_blocks=kw.get("n_blocks", 1),
+                           gather_reuse=kw.get("gather_reuse", 1),
+                           mask_p=kw.get("mask_p", 1.0))
+        route = plan["route"] if kw.get("scatter_free", True) else None
+        steps = plan_args["total_steps"]
+        want = dict(pair=2 * steps if route == "pair" else 0,
+                    persistent=(len(plan["runs"]) if route == "persistent"
+                                else 0),
+                    persistent_sweeps=steps if route == "persistent" else 0)
+        log(f"dispatch {knob}: route {route}, counts "
+            f"{json.dumps(counts[knob])}")
+        if counts[knob] != want or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"dispatch {knob}: {counts[knob]}, plan "
+                                 f"{want}")
+    return counts
+
+
+def check_node_blocks_d3():
+    """``dense_optimize(n_blocks=3)`` at d = 3 on SWEEP_SMALL_ROWS rows,
+    whose second block starts at an odd row (4 bytes off an 8-byte
+    word), through the pair on the card against the same call on the
+    CPU (the twins), at a step small enough that six sweeps stay within
+    the pair's band.  Returns the kernel counts it added."""
+    from annembed_tpu_torch.optim.dense import _block_bounds, dense_optimize
+    n, k = SWEEP_SMALL_ROWS, 6
+    g = torch.Generator(device="cuda").manual_seed(6)
+    idx = torch.randint(0, n, (n, k), generator=g, device="cuda",
+                        dtype=torch.int32)
+    w = torch.rand((n, k), generator=g, device="cuda")
+    args = (3.0 * torch.randn((n, 3), generator=g, device="cuda"), idx, w,
+            2.0 * w, w.flip(0), 2.0 * w.flip(0),
+            torch.rand((n,), generator=g, device="cuda") + 0.5,
+            torch.rand((n,), generator=g, device="cuda") + 0.5)
+    kw = dict(grad_step_init=0.02, b=1.0, n_sub=3, n_neg=5, nb_grad_batch=4,
+              n_groups=2, batch0=0, batch1=2, n_blocks=3,
+              offsets=[17, n - 4, 101, 5, n // 2, 62])
+    reset_launches()
+    got = dense_optimize(*args, **kw)
+    torch.cuda.synchronize()
+    counts = dense_counts()
+    twin = dense_optimize(*(a.cpu() for a in args), **kw)
+    y_max = float(args[0].abs().max())
+    err = float((got.cpu() - twin).abs().max())
+    lo = _block_bounds(n, 3)[1][0]
+    log(f"node blocks at d 3: second block from row {lo}, max abs err vs "
+        f"the CPU run {err:.3e} (max|y| {y_max:.3e}), counts "
+        f"{json.dumps(counts)}")
+    if lo % 2 == 0 or err > SWEEP_REL * y_max or \
+            not bool(torch.isfinite(got).all()) or \
+            counts != dict(pair=12, persistent=0, persistent_sweeps=0):
+        raise AssertionError(f"node blocks at d 3: err {err}, counts "
+                             f"{counts}")
+    return counts
+
+
+def profile_launches(name, fn):
+    """``torch.profiler`` over one call of ``fn`` after a warm-up: device
+    time of each kernel, the window's wall and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0))
+        if dev_us and getattr(evt, "device_type", None) is not None and \
+                "cuda" in str(evt.device_type).lower():
+            kernels[evt.key[:60]] = dict(ms=dev_us / 1e3, count=evt.count)
+    busy = sum(v["ms"] for v in kernels.values())
+    out = dict(shape=name, wall_ms=wall_ms, kernel_ms=busy,
+               busy_share=busy / wall_ms, kernels=kernels)
+    log(f"profile {name}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({busy / wall_ms:.4f}); {json.dumps(kernels)}")
+    return out
+
+
+def profile_sweeps(inp, steps, tag):
+    """The profiler over one persistent launch of ``steps`` sweeps and
+    over the pair driving the same sweeps."""
+    from annembed_tpu_torch.ops.dense_sweep import (
+        dense_attraction_rows, dense_kick_rows, dense_sweeps)
+    plan = sweep_plan(inp, steps)
+    y = inp["y"].clone()
+    knobs = dict(neg_weight=inp["neg_weight"],
+                 neighbor_exclusion=inp.get("exclusion", True))
+    lists = [t.tolist() for t in plan]
+
+    def pair():
+        for g, o, c in zip(*lists):
+            a = dense_attraction_rows(y, y, 0, inp["edges"][c], inp["scale"],
+                                      g, inp["b"])
+            dense_kick_rows(y, a, 0, o, inp["idx_full"], inp["scale"], g,
+                            inp["b"], inp["n_neg"], flat=True, out=y,
+                            **knobs)
+
+    return [profile_launches(f"{tag} persistent, {steps} sweeps",
+                             lambda: dense_sweeps(
+                                 y, None, inp["edges"], inp["scale"], *plan,
+                                 inp["b"], inp["n_neg"], inp["idx_full"],
+                                 **knobs)),
+            profile_launches(f"{tag} pair, {steps} sweeps", pair)]
+
+
 def phase_dense_sweep():
-    """Phase 3b: the dense sweep kernel against its twin at phase 4's
-    two steps, the bench's graph and one small case per knob."""
-    shapes = []
+    """Phase 3b: the dense sweep kernels against their twins: the pair at
+    phase 4's two steps, the bench's graph and one small case per knob,
+    each half timed alone at the path's shapes; the persistent launch
+    over a run of sweeps at the same shapes and per knob; the dispatch of
+    ``dense_optimize``; profiler readings of a large-step segment and a
+    first-step segment.  Returns (pair shapes, persistent shapes,
+    dispatch counts, profiles)."""
+    from annembed_tpu_torch.optim.dense import _segment_cap
+    shapes, runs, profiles = [], [], []
     inp = sweep_inputs(SWEEP_LARGE_ROWS)
-    shapes.append(check_dense_sweep("higgs_large_step", inp, reps=20))
+    shapes.append(check_dense_sweep("higgs_large_step", inp, reps=20,
+                                    split=True))
+    runs.append(check_persistent("higgs_large_step", inp,
+                                 PERSISTENT_LARGE_STEPS, reps=3))
+    profiles += profile_sweeps(inp, _segment_cap(SWEEP_LARGE_ROWS, 2),
+                               "higgs_large_step")
     del inp
-    shapes.append(check_dense_sweep("higgs_first_step",
-                                    sweep_inputs(SWEEP_FIRST_ROWS), reps=50))
-    shapes.append(check_dense_sweep("bench_graph", bench_sweep_inputs(),
-                                    reps=50))
+    inp = sweep_inputs(SWEEP_FIRST_ROWS)
+    shapes.append(check_dense_sweep("higgs_first_step", inp, reps=50,
+                                    split=True))
+    runs.append(check_persistent("higgs_first_step", inp,
+                                 PERSISTENT_SMALL_STEPS, reps=5))
+    profiles += profile_sweeps(inp, _segment_cap(SWEEP_FIRST_ROWS, 2),
+                               "higgs_first_step")
+    inp = bench_sweep_inputs()
+    shapes.append(check_dense_sweep("bench_graph", inp, reps=50, split=True))
+    runs.append(check_persistent("bench_graph", inp, PERSISTENT_SMALL_STEPS,
+                                 reps=5))
     n = SWEEP_SMALL_ROWS
     inp = sweep_inputs(n, seed=1)
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -621,9 +940,9 @@ def phase_dense_sweep():
     shapes.append(check_dense_sweep(
         "mask", inp, reps=5, mask_p=0.7, mask=(torch.rand(
             (3, n), generator=g, device="cuda") < 0.7).float()))
-    shapes.append(check_dense_sweep(
-        "stale", inp, reps=5, y_src=inp["y"] + 0.1 * torch.randn(
-            inp["y"].shape, generator=g, device="cuda")))
+    stale = inp["y"] + 0.1 * torch.randn(inp["y"].shape, generator=g,
+                                         device="cuda")
+    shapes.append(check_dense_sweep("stale", inp, reps=5, y_src=stale))
     shapes.append(check_dense_sweep("b_1.5", dict(inp, b=1.5), reps=5))
     shapes.append(check_dense_sweep("no_exclusion", inp, reps=5,
                                     exclusion=False))
@@ -632,22 +951,40 @@ def phase_dense_sweep():
     shapes.append(check_dense_sweep("d5_block", sweep_inputs(n, d=5, seed=4),
                                     reps=5, lo=11, rows=4_000,
                                     parallel=True))
-    return shapes
+    # the persistent launch per knob, compile-time instances (d 2, kg 3,
+    # n_neg 5) and runtime-bound ones (n_neg 7, d 3, d 5): over many
+    # sweeps only the pair is its bit-level yardstick
+    small = PERSISTENT_KNOB_STEPS
+    runs.append(check_persistent("parallel_kicks", inp, small, reps=3,
+                                 parallel=True, exact=False))
+    runs.append(check_persistent("stale", inp, small, reps=3, y_src=stale,
+                                 exact=False))
+    runs.append(check_persistent("b_1.5", dict(inp, b=1.5), small, reps=3,
+                                 exact=False))
+    runs.append(check_persistent("no_exclusion_n_neg_7",
+                                 dict(inp, n_neg=7, neg_weight=None), small,
+                                 reps=3, exclusion=False, exact=False))
+    runs.append(check_persistent("d3", sweep_inputs(n, d=3, seed=3), small,
+                                 reps=3, exact=False))
+    runs.append(check_persistent("d5", sweep_inputs(n, d=5, seed=4), small,
+                                 reps=3, exact=False))
+    dispatch = check_dispatch()
+    dispatch["n_blocks_d3"] = check_node_blocks_d3()
+    return shapes, runs, dispatch, profiles
 
 
 def phase_bench():
     """Phase 5: bench.py's one-step workload at 70,000 x 784.  Returns
-    the dense sweep kernel's launches."""
+    the dense sweep kernels' counts."""
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.ops.top1 import top1_l2
     reset_launches()
     rec, t, y, tm = bench.run(bench.N, "cuda")
-    dense = dense_launches()
+    dense = dense_counts()
     log(f"bench: phases (s) {json.dumps(t)}; manifold row {json.dumps(tm)}; "
-        f"top1_l2 launches={top1_l2.launches}; dense sweep launches={dense}")
-    if dense < 1:
-        raise AssertionError("the bench never launched the dense sweep "
-                             "kernel")
+        f"top1_l2 launches={top1_l2.launches}; dense sweep launches="
+        f"{json.dumps(dense)}")
+    require_route("bench", dense, "persistent")
     log(json.dumps(rec))
     y = y.cpu().numpy()
     if y.shape != (bench.N, 2) or not np.isfinite(y).all():
@@ -695,9 +1032,8 @@ _CLI_COUNTED = (
     "import atexit, json, runpy, sys\n"
     "from annembed_tpu_torch.ops import dense_sweep as ds, top1\n"
     "atexit.register(lambda: print('launches: ' + json.dumps(dict(\n"
-    "    top1_l2=top1.top1_l2.launches,\n"
-    "    dense_sweep=ds.dense_attraction_rows.launches\n"
-    "    + ds.dense_kick_rows.launches)), file=sys.stderr, flush=True))\n"
+    "    top1_l2=top1.top1_l2.launches, dense_sweep=ds.launch_counts())),\n"
+    "    file=sys.stderr, flush=True))\n"
     "runpy.run_module('annembed_tpu_torch.cli', run_name='__main__',\n"
     "                 alter_sys=True)\n")
 
@@ -727,7 +1063,7 @@ def _csv_rows(path: Path) -> int:
 
 def phase_cli():
     """Phase 7: the CLI on a 20,000 x 784 csv with a '#' header.
-    Returns the dense sweep kernel's launches in ``embed``."""
+    Returns the dense sweep kernels' counts in ``embed``."""
     from annembed_tpu_torch.bench import MIN_CLUSTER_SIZE
     from annembed_tpu_torch.io.synthetic import synthetic_clustered_manifold
     with tempfile.TemporaryDirectory() as tmp:
@@ -741,9 +1077,7 @@ def phase_cli():
              str(d / "embedded.csv"), "--device", "cuda"])
         log(f"cli embed: wall={wall:.2f} s launches {json.dumps(launches)} "
             f"{json.dumps(out)}")
-        if launches["dense_sweep"] < 1:
-            raise AssertionError("cli embed never launched the dense sweep "
-                                 "kernel")
+        require_route("cli embed", launches["dense_sweep"], "persistent")
         keys = {"quality", "cluster", "intrinsic_dim", "intrinsic_dim_2nn",
                 "hubness_skew", "hubness_hist"}
         if not keys <= set(out) or out["n"] != CLI_ROWS:
@@ -778,8 +1112,8 @@ def phase_metrics(at):
     """Phase 8: ``embed(distance=...)`` under each non-L2 metric on
     20,000 x 784 blobs (the bench's width; probability rows for Jeffreys
     and Jensen-Shannon), its graph held against the CPU search of the
-    same rows on a sample.  Returns the dense sweep kernel's launches
-    per metric."""
+    same rows on a sample.  Returns the dense sweep kernels' counts per
+    metric."""
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.knn.brute import knn_search_brute
     from annembed_tpu_torch.ops.top1 import top1_l2
@@ -796,7 +1130,7 @@ def phase_metrics(at):
         y, info = at.embed(data, dim=2, nbng=KNN_K, distance=metric,
                            return_graph=True, device="cuda")
         wall = time.perf_counter() - t0
-        launches[metric] = dense_launches()
+        launches[metric] = dense_counts()
         g = info["kgraph"]
         gi = g.indices.cpu().numpy()[sample]
         gd = g.dists.cpu().numpy()[sample]
@@ -820,16 +1154,14 @@ def phase_metrics(at):
             f"id agreement {agree:.5f} outside {int((~clear).sum())} "
             f"near-tie columns, max rel dist err {float(d_err.max()):.3e}, "
             f"{bad_d} dists out of tol; top1_l2 launches={top1_l2.launches}, "
-            f"dense sweep launches={launches[metric]}")
+            f"dense sweep launches={json.dumps(launches[metric])}")
         if y.shape != (METRIC_ROWS, 2) or not np.isfinite(y).all():
             raise AssertionError(f"{metric}: embedding {y.shape} or "
                                  "non-finite")
         if agree < METRIC_MIN_AGREE or bad_d:
             raise AssertionError(f"{metric}: CUDA graph disagrees with the "
                                  "CPU search")
-        if launches[metric] < 1:
-            raise AssertionError(f"{metric}: the dense sweep kernel never "
-                                 "launched")
+        require_route(metric, launches[metric], "persistent")
     return launches
 
 
@@ -985,7 +1317,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     """``embed(x, layer=1)`` at the Higgs operating point on the rows of
     CUDA tensor ``x``, launch counts from zero, held to a finite (n, 2)
     output, one launch at least of each kernel, graph recall and label
-    purity.  Returns (top-1 launches, dense sweep launches, info, y)."""
+    purity.  Returns (top-1 launches, dense sweep counts, info, y)."""
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
     from annembed_tpu_torch.ops.top1 import top1_l2
@@ -1001,7 +1333,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         **HIGGS_EMBED, **extra)
     wall = time.perf_counter() - t0
     launches = top1_l2.launches
-    dense = dense_launches()
+    dense = dense_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     first = info["first_step"]
     # what is left of the total: edge probabilities, the jittered
@@ -1021,7 +1353,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         f"{first['final_ce']:.6g} ({first['sweeps']} sweeps); large step ce "
         f"{info['initial_ce']:.6g} -> {info['final_ce']:.6g} "
         f"({info['sweeps']} sweeps); top1_l2 launches={launches}, dense "
-        f"sweep launches={dense}")
+        f"sweep launches={json.dumps(dense)}")
     log(f"{tag}: projection distance quantiles "
         f"{json.dumps(info['projection_distance_quantiles'])}")
     if "quality" in info:
@@ -1040,8 +1372,12 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: embedding {y.shape} or non-finite")
     if launches < 1:
         raise AssertionError(f"{tag} never launched top1_l2")
-    if dense < 1:
-        raise AssertionError(f"{tag} never launched the dense sweep kernel")
+    # every whole-array sweep through the persistent launch
+    require_route(tag, dense, "persistent")
+    if dense["persistent_sweeps"] != first["sweeps"] + info["sweeps"]:
+        raise AssertionError(f"{tag}: {dense['persistent_sweeps']} sweeps "
+                             f"in persistent launches, not "
+                             f"{first['sweeps']} + {info['sweeps']}")
     if recall < min_recall:
         raise AssertionError(f"{tag}: recall@{KNN_K} {recall} < {min_recall}")
     if purity < MIN_PURITY:
@@ -1328,12 +1664,10 @@ def phase_parts(at, x):
     reset_launches()
     y3, info = at.embed(x[:QUALITY_ROWS].cpu().numpy(), dim=3, nbng=KNN_K,
                         batch=5, seed=SEED, return_graph=True, device="cuda")
-    dense = dense_launches()
+    dense = dense_counts()
     log(f"parts: {QUALITY_ROWS} x 3 embedding, {info['sweeps']} sweeps, "
-        f"dense sweep launches={dense}")
-    if dense < 1:
-        raise AssertionError("the 3-D embedding never launched the dense "
-                             "sweep kernel")
+        f"dense sweep launches={json.dumps(dense)}")
+    require_route("parts 3-D embedding", dense, "persistent")
     y3 = torch.from_numpy(y3).to(dev)
     out = {}
     for name, limit in (("ivf", at.KnnParams().brute_force_limit),
@@ -1445,13 +1779,13 @@ def phase_harness(labels, frac_s1):
         f"{frac_s1} at S=1; recall@{KNN_K} {rec[f'recall@{KNN_K}']}; "
         f"embedded {KNN_K}-NN label purity {purity:.4f}; resumed in "
         f"{again['wall_s']} s, launches {port2['top1_l2_launches']}; dense "
-        f"sweep launches {port['dense_sweep_launches']}")
+        f"sweep launches {json.dumps(port['dense_sweep_counts'])}")
     if y.shape != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"harness embedding {tuple(y.shape)} or "
                              "non-finite")
-    if port["top1_l2_launches"] < 1 or port["dense_sweep_launches"] < 1:
-        raise AssertionError("the harness never launched top1_l2 or the "
-                             "dense sweep kernel")
+    if port["top1_l2_launches"] < 1:
+        raise AssertionError("the harness never launched top1_l2")
+    require_route("harness", port["dense_sweep_counts"], "persistent")
     if (rec["gather_reuse"], first["gather_reuse"]) != (
             HARNESS_GATHER_REUSE,) * 2:
         raise AssertionError("the harness's steps did not report "
@@ -1467,7 +1801,7 @@ def phase_harness(labels, frac_s1):
         raise AssertionError(
             f"harness frac_without_match {frac} is not S=1's {frac_s1} + "
             f"{HARNESS_FRAC_SHIFT} +- {HARNESS_FRAC_ABS}")
-    return port["top1_l2_launches"], port["dense_sweep_launches"]
+    return port["top1_l2_launches"], port["dense_sweep_counts"]
 
 
 def phase_knobs_io(at):
@@ -1475,7 +1809,7 @@ def phase_knobs_io(at):
     with each dense knob, held to the JAX package's no_match; a
     ``trace_dir`` capture; the rows through gzip IDX files and back; a
     neighbourhood's BSON from the card against the CPU's.  Returns the
-    dense sweep kernel's launches per knob (none on the row-major scatter
+    dense sweep kernels' counts per knob (none on the row-major scatter
     path, which runs torch ops)."""
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io import mnist_io, ripser
@@ -1489,7 +1823,7 @@ def phase_knobs_io(at):
         y, info = at.embed(x, params=at.EmbedderParams(**kw), device="cuda",
                            **bench.KNOB_EMBED)
         wall = time.perf_counter() - t0
-        launches[knob] = dense_launches()
+        launches[knob] = dense_counts()
         no_match = int(info["quality"]["nb_without_match"])
         want = JAX_KNOB_NO_MATCH[knob]
         rel = abs(no_match - want) / want
@@ -1497,12 +1831,15 @@ def phase_knobs_io(at):
             f"{info['optimize_time']:.3f} s ({info['sweeps']} sweeps); "
             f"no_match {no_match} vs JAX {want} ({rel:.4f} relative); "
             f"mean_matched {info['quality']['mean_nb_matched']:.4f}; dense "
-            f"sweep launches {launches[knob]}")
+            f"sweep launches {json.dumps(launches[knob])}")
         if y.shape != (bench.N, 2) or not np.isfinite(y).all():
             raise AssertionError(f"knob {knob}: {y.shape} or non-finite")
-        if (launches[knob] > 0) != kw.get("dense_scatter_free", True):
-            raise AssertionError(f"knob {knob}: {launches[knob]} dense "
-                                 "sweep launches")
+        # node blocks through the pair, the row-major path on torch ops,
+        # every other knob through the persistent launch
+        require_route(f"knob {knob}", launches[knob],
+                      None if not kw.get("dense_scatter_free", True) else
+                      "pair" if kw.get("dense_n_blocks", 1) > 1 else
+                      "persistent")
         if rel > NO_MATCH_REL:
             off[knob] = rel
     with tempfile.TemporaryDirectory() as tmp:
@@ -1589,7 +1926,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
         **{k: v for k, v in HIGGS_EMBED.items() if k != "device"})
     out["a_wall"] = time.perf_counter() - t0
     out["a_launches"] = top1_l2.launches
-    out["a_dense"] = dense_launches()
+    out["a_dense"] = dense_counts()
     out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     mine = torch.tensor([rank_checksum(torch.from_numpy(y).to(dev))],
                         dtype=torch.int64, device=dev)
@@ -1605,7 +1942,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     t0 = time.perf_counter()
     rec, t, yb, _ = bench.run(bench.N, mesh=mesh)
     out["b_wall"] = time.perf_counter() - t0
-    out["b_dense"] = dense_launches()
+    out["b_dense"] = dense_counts()
     out["b_rec"], out["b_phases"] = rec, t
     out["b_finite"] = bool(torch.isfinite(yb).all()) and \
         tuple(yb.shape) == (bench.N, 2)
@@ -1700,8 +2037,10 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     if not within_band(frac, frac_s1, MESH_FRAC_ABS):
         raise AssertionError(f"mesh (a): frac_without_match {frac} vs "
                              f"{frac_s1}")
-    if min(launches) < 1 or min(dense["a"] + dense["b"]) < 1 or \
-            info["n_devices"] != w:
+    for part in ("a", "b"):
+        for rank, counts in enumerate(dense[part]):
+            require_route(f"mesh ({part}) rank {rank}", counts, "pair")
+    if min(launches) < 1 or info["n_devices"] != w:
         raise AssertionError(f"mesh (a): launches {launches}, dense {dense}, "
                              f"n_devices {info['n_devices']}")
     # (b)
@@ -1835,7 +2174,7 @@ def main() -> int:
         torch.randn(131, 5, generator=gen).to(dev), reps=5))
     log(f"phase 3: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    sweep_shapes = phase_dense_sweep()
+    sweep_shapes, persistent_runs, dispatch, profiles = phase_dense_sweep()
     log(f"phase 3b (dense sweep kernel): {time.perf_counter() - t0:.2f} s")
 
     # phase 4: the main path at full size, then the exact hierarchical
@@ -1924,26 +2263,52 @@ def main() -> int:
         "shapes": [dict(s, launches=path_launches[s["shape"]])
                    for s in shapes]}
     # the dense sweep's numbers are those of phase 4's large step (one
-    # sweep of 11M rows); launches count both launches of every sweep
-    large = sweep_shapes[0]
+    # sweep of 11M rows).  Every whole-array sweep of phase 4's path runs
+    # in the persistent launch, so the main path launches no pair; the
+    # pair's own path is the node blocks, and its "launches" (both halves
+    # of every sweep) are those of phase 12's dense_n_blocks run, counts
+    # set to 0 just before it and read just after.  Every path's counts
+    # are in launches_by_path, every mesh rank's in mesh_launches_by_rank
+    large, large_run = sweep_shapes[0], persistent_runs[0]
+    by_path = {
+        "main_path": main_dense, "exact_path": exact_dense,
+        "parts_3d": parts_dense, "bench": bench_dense, "cli": cli_dense,
+        "metrics": metric_dense, "harness": harness_dense,
+        "knobs": knob_dense, "dispatch": dispatch}
     sweep = {
         "name": "dense_sweep", "route": "cuda",
         "source": "annembed_tpu_torch/csrc/dense_sweep.cu",
         "replaces": "annembed_tpu/optim/dense.py:272,406",
         "replaces_note": "an XLA fusion of jnp code; the JAX package has "
                          "no Pallas kernel for the sweep",
-        "launches": main_dense, "max_abs_err": large["max_abs_err"],
+        "launches": knob_dense["n_blocks"]["pair"],
+        "launches_path": "phase 12: embed(dense_n_blocks=2) on the "
+                         "bench's blobs rows",
+        "main_path_launches": main_dense["pair"],
+        "max_abs_err": large["max_abs_err"],
         "ms": large["ms"], "plain_ms": large["twin_ms"],
         "bound_ms": large["bound_ms"], "bound_by": large["bound_by"],
         "library_ms": None,
-        "launches_by_path": {
-            "main_path": main_dense, "exact_path": exact_dense,
-            "parts_3d": parts_dense, "bench": bench_dense, "cli": cli_dense,
-            "metrics": metric_dense, "harness": harness_dense,
-            "knobs": knob_dense},
+        "attraction_ms": large["attraction_ms"],
+        "kick_ms": large["kick_ms"],
+        "launches_by_path": by_path,
         "mesh_launches_by_rank": mesh_dense,
         "shapes": sweep_shapes}
-    log(json.dumps({"kernels": [top1, sweep]}))
+    persistent = {
+        "name": "dense_sweeps", "route": "cuda",
+        "source": "annembed_tpu_torch/csrc/dense_sweep.cu",
+        "replaces": "annembed_tpu/optim/dense.py:272,406",
+        "replaces_note": "a run of whole-array sweeps in one cooperative "
+                         "launch; ms, plain_ms and bound_ms a sweep",
+        "launches": main_dense["persistent"],
+        "sweeps": main_dense["persistent_sweeps"],
+        "max_abs_err": large_run["max_abs_err"],
+        "ms": large_run["ms"], "plain_ms": large["twin_ms"],
+        "pair_ms": large_run["pair_ms"],
+        "bound_ms": large_run["bound_ms"],
+        "bound_by": large_run["bound_by"], "library_ms": None,
+        "shapes": persistent_runs, "profiles": profiles}
+    log(json.dumps({"kernels": [top1, sweep, persistent]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@ readings they must tell apart (PERF.md section 6): phase 5's dense
 bench margins admit every H100 reading of the dense optimizer over PRs
 2-5 and the JAX seeds, and reject the sampling optimizer's readings on
 the same rows; phase 12's knob references sit where their readings
-are."""
+are; the dense sweep's route check."""
 
 import importlib.util
 from pathlib import Path
@@ -131,3 +131,22 @@ def test_phase15_graph_agreement_ignores_near_ties_only():
     clear = i.clone()
     clear[0, 2] = 11                                 # a clear column
     assert cs.graph_agreement(clear, d, i, d)[0] < cs.MESH_GRAPH_AGREE
+
+
+@pytest.mark.parametrize("counts, route, ok", [
+    (dict(pair=0, persistent=13, persistent_sweeps=120), "persistent", True),
+    (dict(pair=2, persistent=13, persistent_sweeps=120), "persistent", False),
+    (dict(pair=0, persistent=0, persistent_sweeps=0), "persistent", False),
+    (dict(pair=240, persistent=0, persistent_sweeps=0), "pair", True),
+    (dict(pair=240, persistent=1, persistent_sweeps=2), "pair", False),
+    (dict(pair=0, persistent=0, persistent_sweeps=0), None, True),
+    (dict(pair=2, persistent=0, persistent_sweeps=0), None, False)])
+def test_dense_route_check(counts, route, ok):
+    """Each dense path's counts must show its route alone: whole arrays
+    the persistent launch, node blocks and mesh ranks the pair, the
+    row-major knob neither."""
+    if ok:
+        cs.require_route("path", counts, route)
+    else:
+        with pytest.raises(AssertionError, match="route"):
+            cs.require_route("path", counts, route)
