@@ -49,6 +49,7 @@ from annembed_tpu_torch.io.synthetic import (synthetic_clustered_manifold,
                                              synthetic_higgs)
 from annembed_tpu_torch.knn.api import sampled_exact_recall
 from annembed_tpu_torch.ops.dense_sweep import launch_counts
+from annembed_tpu_torch.ops.ivf_join import ivf_join
 from annembed_tpu_torch.ops.top1 import top1_l2
 
 #: ``info`` fields the JAX harness's record does not carry
@@ -244,6 +245,7 @@ def main(argv=None) -> int:
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
     port["top1_l2_launches"] = top1_l2.launches
+    port["ivf_join_launches"] = ivf_join.launches
     counts = launch_counts()
     port["dense_sweep_launches"] = counts["pair"] + counts["persistent"]
     port["dense_sweep_counts"] = counts

@@ -20,7 +20,9 @@ padding is left is masked; the order of the valid candidates, and so
 every result, is the same.  ``layout="sorted"`` reorders the corpus by
 cell once, so queries and candidate windows are ranges of positions;
 ``layout="gathered"`` reads them through id tables.  Both give the same
-bits.
+bits.  On a CUDA tensor the sorted layout's DistL2 join is one launch of
+the hand-written kernel of ops/ivf_join.py, which writes no panel and
+agrees with the torch join outside near-ties (``join_on_kernel``).
 
 Tables are int32 in memory (n k and every position fit); they are
 widened where torch wants an int64 index.
@@ -35,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.ivf_join import ivf_join
 from ..utils.profiling import PhaseTimer
 from .brute import _topk_lowest_index, check_knobs
 from .distances import (PANEL_BYTES, USES_SQNORM, check_distance,
@@ -307,6 +310,16 @@ def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs, k: int,
                      panel_bytes, mesh)
 
 
+def join_on_kernel(device_type: str, layout: str, distance: str) -> bool:
+    """Whether the local join runs the kernel of ops/ivf_join.py: the
+    cell-sorted layout, DistL2 and a CUDA tensor.  Every other
+    combination (the CPU, the gathered layout, the four other metrics)
+    runs the torch join by this dispatch, never because a kernel failed:
+    a failed build or launch raises."""
+    return (device_type == "cuda" and layout == "sorted"
+            and distance == "DistL2")
+
+
 def _strip_grid_assign(xq: torch.Tensor, g: int):
     """Strip-balanced 2-D partition: g equal-mass strips by rank of dim
     0, then g equal-count cells by rank of dim 1 within each strip.
@@ -454,11 +467,16 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
     others an approximation whose recall loss NN-descent recovers).
     ``dtype="bfloat16"`` casts the operands of the L2 / cosine panel's
     cross product; DistL2 distances are exact f32 either way (rerank).
-    ``panel_bytes`` bounds one batch's f32 distance panel; the results do
-    not depend on it, nor on ``layout``.  ``mesh`` (parallel/sharded.py,
-    through ``sharded_knn_graph_ivf``) splits the join's batches over
-    the ranks; every rank fits the quantizer and rank 0's cells are
-    broadcast, so the tables are replicated bit for bit."""
+    ``panel_bytes`` bounds one batch's f32 distance panel of the torch
+    join; the results do not depend on it, nor on ``layout``.  On a CUDA
+    tensor, ``layout="sorted"`` with DistL2 runs the join as one launch
+    of the kernel of ops/ivf_join.py (``join_on_kernel``), which agrees
+    with the torch join outside near-ties; the gathered layout and the
+    other metrics run the torch join.  ``mesh`` (parallel/sharded.py,
+    through ``sharded_knn_graph_ivf``) splits the join over the ranks
+    (the kernel's virtual rows, the torch join's batches); every rank
+    fits the quantizer and rank 0's cells are broadcast, so the tables
+    are replicated bit for bit."""
     check_distance(distance)
     check_knobs(dtype, topk_recall)
     x = x.to(torch.float32)
@@ -514,23 +532,65 @@ def _knn_graph_ivf_gathered(x, cells, cell_nbrs, pad_cell: bool, k: int,
     return _fixup_underfilled(idx, dist, n)
 
 
+def sorted_plan(x, cells, pad_cell: bool, nlist: int, qcap: int):
+    """The cell-sorted layout's join inputs: (order32 (n,) sorted position
+    -> id, xs_pad (n + 1, d) the rows in cell order and a zero row, then
+    the row plan qstarts, virt_parent (V,) and starts, counts (cells,)),
+    int32; with ``pad_cell`` one more cell, empty, for the sentinel probe
+    id nlist."""
+    n, d = x.shape
+    order32, starts, counts, virt_parent, qstarts, _ = _ivf_rowplan_impl(
+        cells, nlist, qcap)
+    if pad_cell:
+        starts = torch.cat([starts, starts.new_full((1,), n)])
+        counts = torch.cat([counts, counts.new_zeros((1,))])
+    xs_pad = torch.cat([x[order32], x.new_zeros((1, d))])  # one-time reorder
+    return order32, xs_pad, qstarts, virt_parent, starts, counts
+
+
+def sorted_join_inputs(x, k: int, nlist: int = 0, nprobe: int = 32,
+                       quantizer: str = "kmeans", cap: Optional[int] = None,
+                       qcap: Optional[int] = None, seed: int = 0):
+    """The DistL2 join's inputs for the rows ``x`` as ``knn_graph_ivf``
+    builds them in the sorted layout (its quantizer at ``seed``, the
+    default k-means subsample and iterations): the keyword arguments of
+    ``ops.ivf_join.ivf_join``.  ``cap`` / ``qcap`` in place of the
+    sizing's cut windows shorter and split cells into more virtual rows
+    (the kernel's checks use that)."""
+    cells, cell_nbrs, nlist, cap0, qcap0, pad = _quantize_cells(
+        x, k, nlist, nprobe, quantizer, seed, 500_000, 10)
+    cap = cap0 if cap is None else cap
+    qcap = min(cap, qcap0 if qcap is None else qcap)
+    _, xs_pad, qstarts, parents, starts, counts = sorted_plan(
+        x, cells, pad, nlist, qcap)
+    return dict(xs_pad=xs_pad, sqnorm=corpus_sqnorm(xs_pad), qstarts=qstarts,
+                qparents=parents, starts=starts, counts=counts,
+                cell_nbrs=cell_nbrs, k=k, qcap=qcap, cap=cap)
+
+
 def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, k: int,
                           nlist: int, cap: int, qcap: int, dtype: str,
                           distance: str, panel_bytes: int = PANEL_BYTES,
                           mesh=None):
     """The cell-sorted layout: the join runs in sorted-position
     space; one final relabeling pass returns original ids and rows."""
-    n, d = x.shape
-    order32, starts, counts, virt_parent, qstarts, _ = _ivf_rowplan_impl(
-        cells, nlist, qcap)
-    if pad_cell:
-        # sentinel probe id nlist -> empty cell (count 0)
-        starts = torch.cat([starts, starts.new_full((1,), n)])
-        counts = torch.cat([counts, counts.new_zeros((1,))])
-    xs_pad = torch.cat([x[order32], x.new_zeros((1, d))])  # one-time reorder
-    idx_s, dist_s = _ivf_join_sorted(xs_pad, qstarts, virt_parent, starts,
-                                     counts, cell_nbrs, k, qcap, cap, dtype,
-                                     distance, panel_bytes, mesh)
+    n = x.shape[0]
+    order32, xs_pad, qstarts, virt_parent, starts, counts = sorted_plan(
+        x, cells, pad_cell, nlist, qcap)
+    if join_on_kernel(x.device.type, "sorted", distance):
+        # every virtual row of this rank in one launch; the others' rows
+        # are 0 until the sum
+        rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+        idx_s, dist_s = ivf_join(xs_pad, corpus_sqnorm(xs_pad), qstarts,
+                                 virt_parent, starts, counts, cell_nbrs, k,
+                                 qcap, cap, dtype, rank, size)
+        if mesh is not None:
+            mesh.all_reduce_sum(idx_s, dist_s)
+    else:
+        idx_s, dist_s = _ivf_join_sorted(xs_pad, qstarts, virt_parent,
+                                         starts, counts, cell_nbrs, k, qcap,
+                                         cap, dtype, distance, panel_bytes,
+                                         mesh)
     del xs_pad
     idx_s, dist_s = _fixup_underfilled(idx_s, dist_s, n)
     # sorted-position space -> original labels: row r holds point

@@ -34,6 +34,15 @@ CUDA device it exits 1 before printing any result):
    its node blocks at d = 3 (rows from an odd start) against the CPU;
    ``torch.profiler`` over a large-step and a first-step segment,
    persistent and pair;
+3c. the IVF join kernel (``ops/ivf_join.py``) against its twin, the
+   torch join, on the same plan, every row through the fix-up: phase 4's
+   large-graph join (all 11,000,000 rows, bf16, k 12, nprobe 24; the
+   twin once), the first 1,000,000 rows in f32 and in bf16 (the parts'
+   knobs), 5,003 rows of small integers with ties and underfilled rows
+   (bit-equal), and 300,000 x 3 at k 51 (the quality estimate's IVF
+   radius search, the shared-list instance); ids equal outside
+   near-ties of the ranked value, dists within 1e-5 relative, two
+   launches bit-equal, timed beside ``join_bounds``;
 4. the main path: ``embed(x, layer=1)`` on 11,000,000 x 28 Higgs-shaped
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
@@ -107,8 +116,11 @@ CUDA device it exits 1 before printing any result):
    with W > 1, (b) once more through ``embed(n_devices=W)``.
 
 Before each path the kernel launch counts are set to 0 and read after it;
-every dense path must launch the dense sweep kernels by its route, the
-CLI's and the harness's processes reporting their own counts: whole-array
+every graph above the brute limit must launch the IVF join kernel
+(phase 4's main path and parts, the harness, every rank of phase 15 (a)
+and (d)), and the exact path none; every dense path must launch the
+dense sweep kernels by its route, the CLI's and the harness's processes
+reporting their own counts: whole-array
 sweeps (phases 4, 5, 7, 8, 11, 12's other knobs) only through the
 persistent launch, phase 4's every sweep; node blocks (phase 12) and
 every rank of the mesh (phase 15) only through the pair; the row-major
@@ -163,7 +175,7 @@ D2_REL = 1e-5
 MIN_RECALL = 0.99                # exact graphs
 MIN_PURITY = 0.9
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("top1_l2", "dense_sweep")
+KERNEL_SOURCES = ("top1_l2", "dense_sweep", "ivf_join")
 # phase 3: the kernel's other shapes on the path (bench rows at the
 # default hierarchy fraction); the H100 SXM data sheet's peaks for the
 # bounds
@@ -186,6 +198,19 @@ SWEEP_SMALL_ROWS = 5_003
 # and at the path's three shapes to the twin (max abs err 0)
 PERSISTENT_LARGE_STEPS, PERSISTENT_SMALL_STEPS = 60, 200
 PERSISTENT_KNOB_STEPS = 20
+
+# phase 3c: the IVF join kernel against the torch join (the twin) on the
+# same plan: phase 4's large-graph join (all 11M rows, k 12 = 2 knbn,
+# nprobe 24, bf16), the parts' 1M graphs (default nprobe 32) in f32 and
+# bf16, a ragged case of small-integer rows (exact: ties and underfilled
+# rows bit-equal to the twin), and the quality estimate's IVF radius
+# search at k 51 on 300,000 x 3 rows (the shared-list instance).  Ids
+# must agree outside near-ties of the ranked value (TIE_REL of
+# |q|^2 + |c|^2) and dists within 1e-5 relative (ops/ivf_join.py)
+JOIN_K = 2 * KNN_K
+JOIN_SMALL_ROWS, JOIN_SMALL_K, JOIN_SMALL_NLIST = 5_003, 20, 400
+JOIN_QUALITY_K = QUALITY_NBNG + 1
+H100_BF16_FLOPS = 989e12
 
 # phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
 # workload with the same exact f32 graph, the mean of seeds 0 / 1 / 2
@@ -424,9 +449,17 @@ def check_kernel(name, q, c, reps, once=False):
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from annembed_tpu_torch.ops.dense_sweep import reset_launch_counts
+    from annembed_tpu_torch.ops.ivf_join import ivf_join
     from annembed_tpu_torch.ops.top1 import top1_l2
     top1_l2.launches = 0
+    ivf_join.launches = 0
     reset_launch_counts()
+
+
+def join_launches() -> int:
+    """IVF join kernel launches since the last reset."""
+    from annembed_tpu_torch.ops.ivf_join import ivf_join
+    return ivf_join.launches
 
 
 def dense_counts() -> dict:
@@ -443,16 +476,132 @@ def dense_launches() -> int:
     return counts["pair"] + counts["persistent"]
 
 
-def require_route(tag, counts, route) -> None:
+def require_route(tag, counts, route, joins=None) -> None:
     """The dense sweeps of a path went through ``route``: "persistent"
     (persistent launches and no pair), "pair" (pairs and no persistent
-    launch) or None (no dense sweep kernel)."""
+    launch) or None (no dense sweep kernel); with ``joins`` (the path's
+    IVF join kernel launches) given, its IVF graph builds launched the
+    join kernel."""
     pair, persistent = counts["pair"] > 0, counts["persistent"] > 0
     if (pair, persistent) != {"persistent": (False, True),
                               "pair": (True, False),
                               None: (False, False)}[route]:
         raise AssertionError(f"{tag}: dense sweep launches {counts}, not "
                              f"the {route} route")
+    if joins is not None and joins < 1:
+        raise AssertionError(f"{tag}: the IVF join kernel was never "
+                             "launched")
+
+
+def join_bounds(inp, dtype):
+    """Least time (ms) an H100 SXM could take for the join of ``inp``:
+    the larger of its bytes (every input read once, the outputs written
+    once) at 3.35 TB/s and its cross products, 2 d flop for each
+    query-candidate pair of the plan, in bf16 at 989 TFLOP/s or
+    f32-accurate (three TF32 products) at 495; beside it the f32 CUDA
+    cores' bound (2 d flop a pair at 67 TFLOP/s) and the time of the
+    candidate windows' bytes read once a virtual row."""
+    xs = inp["xs_pad"]
+    n1, d = xs.shape
+    n, k = n1 - 1, inp["k"]
+    parents = inp["qparents"].long()
+    starts, counts = inp["starts"].long(), inp["counts"].long()
+    qn = (starts[parents] + counts[parents]
+          - inp["qstarts"].long()).clamp(0, inp["qcap"])
+    window = counts[inp["cell_nbrs"].long()[parents]].clamp_max(
+        inp["cap"]).sum(1)
+    pairs = int((qn * window).sum())
+    tables = 4 * (2 * parents.numel() + 2 * starts.numel()
+                  + inp["cell_nbrs"].numel())
+    in_bytes = 4 * n1 * (d + 1) + tables + 8 * n * k
+    window_bytes = (4 * int(window.sum()) * (d + 1) + 4 * n * (d + 1)
+                    + tables + 8 * n * k)
+    flops = 2.0 * d * pairs
+    ops_ms = 1e3 * (flops / H100_BF16_FLOPS if dtype == "bfloat16"
+                    else 3 * flops / H100_TF32_FLOPS)
+    bytes_ms = 1e3 * in_bytes / H100_BYTES_PER_S
+    return dict(pairs=pairs, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                bound_f32_ms=max(1e3 * flops / H100_F32_FLOPS, bytes_ms),
+                windows_ms=1e3 * window_bytes / H100_BYTES_PER_S)
+
+
+def check_join(name, inp, dtype, reps, exact=False):
+    """The join kernel against the torch join on the same plan, both
+    through the fix-up: every row held (bit for bit with ``exact``, else
+    ``join_agreement``), two launches bit-equal, then the kernel timed
+    over ``reps`` launches beside its bound and the twin's one call."""
+    from annembed_tpu_torch.knn.ivf import _fixup_underfilled
+    from annembed_tpu_torch.ops.ivf_join import (DIST_REL, ivf_join,
+                                                 ivf_join_reference,
+                                                 join_agreement)
+    n = inp["xs_pad"].shape[0] - 1
+    got = ivf_join(**inp, dtype=dtype)
+    again = ivf_join(**inp, dtype=dtype)
+    torch.cuda.synchronize()
+    repeat = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    del again
+    twin = {}
+    twin_ms = cuda_once_ms(lambda: twin.update(
+        out=ivf_join_reference(**inp, dtype=dtype)))
+    want = twin.pop("out")
+    underfilled = int(torch.isinf(want[1]).any(1).sum())
+    gi, gd = _fixup_underfilled(*got, n)
+    wi, wd = _fixup_underfilled(*want, n)
+    del want
+    del got
+    agree = join_agreement(inp["xs_pad"], dtype, gi, gd, wi, wd)
+    same = gi == wi
+    max_abs = float((gd - wd)[same].abs().max()) if bool(same.any()) else 0.0
+    clear, rows_differ, _ = graph_agreement(gi.cpu(), gd.cpu(), wi.cpu(),
+                                            wd.cpu())
+    bits = torch.equal(gi, wi) and torch.equal(gd, wd)
+    del gi, gd, wi, wd, same
+    ms = cuda_ms(lambda: ivf_join(**inp, dtype=dtype), reps)
+    b = join_bounds(inp, dtype)
+    v, nprobe = inp["qstarts"].shape[0], inp["cell_nbrs"].shape[1]
+    out = dict(shape=name, n=n, d=inp["xs_pad"].shape[1], k=inp["k"],
+               dtype=dtype, nprobe=nprobe, cap=inp["cap"], qcap=inp["qcap"],
+               virtual_rows=v, underfilled_rows=underfilled,
+               pairs=b["pairs"], ms=ms, twin_ms=twin_ms,
+               bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               bound_f32_ms=b["bound_f32_ms"], windows_ms=b["windows_ms"],
+               share_of_bound=b["bound_ms"] / ms, library_ms=None,
+               repeat_bit_equal=repeat, bit_equal_to_twin=bits,
+               max_abs_err=max_abs, clear_columns_equal=clear,
+               rows_differing=rows_differ, **agree)
+    log(f"join {name}: {json.dumps(out)}")
+    if (not repeat or agree["mismatch_rows"] or agree["unsorted_rows"]
+            or agree["max_rel_dist_err"] > DIST_REL or (exact and not bits)):
+        raise AssertionError(f"ivf_join kernel disagrees with the torch "
+                             f"join at {name}: {out}")
+    return out
+
+
+def phase_join(x):
+    """Phase 3c: the IVF join kernel against its twin at the path's
+    shapes.  Returns each shape's record, phase 4's first."""
+    from annembed_tpu_torch.knn.ivf import sorted_join_inputs as plan
+    rng = np.random.default_rng(SEED)
+    shapes = [check_join("higgs_11m", plan(x, JOIN_K, nprobe=24), "bfloat16",
+                         reps=3)]
+    torch.cuda.empty_cache()
+    xs = x[:PARTS_ROWS].contiguous()
+    for dtype in ("float32", "bfloat16"):
+        shapes.append(check_join(f"slice_1m_{dtype}",
+                                 plan(xs, JOIN_K, nprobe=32), dtype, reps=5))
+    del xs
+    ints = torch.from_numpy(rng.integers(-6, 7, (JOIN_SMALL_ROWS, 5))
+                            .astype(np.float32)).to(x.device)
+    shapes.append(check_join(
+        "ragged_5003", plan(ints, JOIN_SMALL_K, nprobe=2,
+                            nlist=JOIN_SMALL_NLIST),
+        "float32", reps=20, exact=True))
+    x3 = x[:QUALITY_ROWS, :3].contiguous()
+    shapes.append(check_join("quality_300k_k51",
+                             plan(x3, JOIN_QUALITY_K, nprobe=32), "float32",
+                             reps=5))
+    return shapes
 
 
 def sweep_bounds(n_rows, kg, k, n_neg, d, hub, exclusion=True, mask=False):
@@ -1317,7 +1466,8 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     """``embed(x, layer=1)`` at the Higgs operating point on the rows of
     CUDA tensor ``x``, launch counts from zero, held to a finite (n, 2)
     output, one launch at least of each kernel, graph recall and label
-    purity.  Returns (top-1 launches, dense sweep counts, info, y)."""
+    purity.  Returns (top-1 launches, dense sweep counts, info, y, IVF
+    join launches)."""
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
     from annembed_tpu_torch.ops.top1 import top1_l2
@@ -1334,6 +1484,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     wall = time.perf_counter() - t0
     launches = top1_l2.launches
     dense = dense_counts()
+    joins = join_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     first = info["first_step"]
     # what is left of the total: edge probabilities, the jittered
@@ -1353,7 +1504,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         f"{first['final_ce']:.6g} ({first['sweeps']} sweeps); large step ce "
         f"{info['initial_ce']:.6g} -> {info['final_ce']:.6g} "
         f"({info['sweeps']} sweeps); top1_l2 launches={launches}, dense "
-        f"sweep launches={json.dumps(dense)}")
+        f"sweep launches={json.dumps(dense)}, ivf_join launches={joins}")
     log(f"{tag}: projection distance quantiles "
         f"{json.dumps(info['projection_distance_quantiles'])}")
     if "quality" in info:
@@ -1372,8 +1523,12 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: embedding {y.shape} or non-finite")
     if launches < 1:
         raise AssertionError(f"{tag} never launched top1_l2")
-    # every whole-array sweep through the persistent launch
-    require_route(tag, dense, "persistent")
+    # every whole-array sweep through the persistent launch; every graph
+    # above the brute limit through the join kernel, and none below it
+    ivf = n > at.KnnParams().brute_force_limit
+    require_route(tag, dense, "persistent", joins if ivf else None)
+    if not ivf and joins:
+        raise AssertionError(f"{tag}: {joins} join launches on exact graphs")
     if dense["persistent_sweeps"] != first["sweeps"] + info["sweeps"]:
         raise AssertionError(f"{tag}: {dense['persistent_sweeps']} sweeps "
                              f"in persistent launches, not "
@@ -1382,7 +1537,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: recall@{KNN_K} {recall} < {min_recall}")
     if purity < MIN_PURITY:
         raise AssertionError(f"{tag}: label purity {purity} < {MIN_PURITY}")
-    return launches, dense, info, y
+    return launches, dense, info, y, joins
 
 
 def rank_checksum(t: torch.Tensor) -> int:
@@ -1617,15 +1772,18 @@ def phase_a3_rest(at, graph):
 def phase_parts(at, x):
     """The parts of the IVF build against exact search on the card.
     Returns the 3-D embedding, its graph (on the host) and the IVF
-    route's full-fraction frac_without_match, for phase 15, and the dense
-    sweep kernel's launches in the embedding."""
+    route's full-fraction frac_without_match, for phase 15, the dense
+    sweep kernel's launches in the embedding and the IVF join kernel's
+    launches of each part, each required."""
     from annembed_tpu_torch.graph.kgraph import KGraph
     from annembed_tpu_torch.knn.api import build_kgraph, sampled_exact_recall
     from annembed_tpu_torch.knn.ivf import knn_graph_ivf
     from annembed_tpu_torch.utils.profiling import PhaseTimer
     dev = x.device
+    joins = {}
     xp = x[:PARTS_ROWS].contiguous()
     for dtype in ("float32", "bfloat16"):
+        before = join_launches()
         timer = PhaseTimer()
         t0 = time.perf_counter()
         g = build_kgraph(xp, KNN_K, params=at.KnnParams(knbn=KNN_K,
@@ -1634,9 +1792,11 @@ def phase_parts(at, x):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         recall = sampled_exact_recall(xp, g, sample=2000)
+        joins[f"graph_1m_{dtype}"] = join_launches() - before
         log(f"parts: IVF + NN-descent graph, {PARTS_ROWS} x {x.shape[1]}, "
             f"{dtype}, default knobs: {wall:.2f} s "
-            f"{json.dumps(timer.timings)} recall@{KNN_K}={recall:.4f}")
+            f"{json.dumps(timer.timings)} recall@{KNN_K}={recall:.4f} "
+            f"ivf_join launches={joins[f'graph_1m_{dtype}']}")
         if recall < MIN_RECALL_PARTS:
             raise AssertionError(f"IVF {dtype} recall {recall} < "
                                  f"{MIN_RECALL_PARTS}")
@@ -1647,14 +1807,16 @@ def phase_parts(at, x):
     cloud = torch.from_numpy(
         (centers[rng.integers(0, 8, PARTS_ROWS)]
          + rng.normal(0, 0.8, (PARTS_ROWS, 2))).astype(np.float32)).to(dev)
+    before = join_launches()
     t0 = time.perf_counter()
     gi, gd = knn_graph_ivf(cloud, GRID_K, quantizer="grid")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    joins["grid_1m"] = join_launches() - before
     recall = sampled_exact_recall(cloud, KGraph(indices=gi, dists=gd),
                                   sample=2000)
     log(f"parts: grid quantizer, {PARTS_ROWS} x 2, k={GRID_K}: {wall:.2f} s "
-        f"recall@{GRID_K}={recall:.4f}")
+        f"recall@{GRID_K}={recall:.4f} ivf_join launches={joins['grid_1m']}")
     if recall < MIN_RECALL_GRID or not torch.isfinite(gd).all():
         raise AssertionError(f"grid recall {recall} < {MIN_RECALL_GRID} or "
                              "non-finite distances")
@@ -1665,13 +1827,16 @@ def phase_parts(at, x):
     y3, info = at.embed(x[:QUALITY_ROWS].cpu().numpy(), dim=3, nbng=KNN_K,
                         batch=5, seed=SEED, return_graph=True, device="cuda")
     dense = dense_counts()
+    joins["embed_300k"] = join_launches()
     log(f"parts: {QUALITY_ROWS} x 3 embedding, {info['sweeps']} sweeps, "
-        f"dense sweep launches={json.dumps(dense)}")
+        f"dense sweep launches={json.dumps(dense)}, ivf_join launches="
+        f"{joins['embed_300k']}")
     require_route("parts 3-D embedding", dense, "persistent")
     y3 = torch.from_numpy(y3).to(dev)
     out = {}
     for name, limit in (("ivf", at.KnnParams().brute_force_limit),
                         ("exact", QUALITY_ROWS)):
+        before = join_launches()
         t0 = time.perf_counter()
         q = at.quality_estimate(
             info["kgraph"], y3, nbng=QUALITY_NBNG,
@@ -1679,18 +1844,25 @@ def phase_parts(at, x):
         torch.cuda.synchronize()
         out[name] = (q.nb_without_match, q.mean_nb_matched,
                      time.perf_counter() - t0, q.frac_without_match)
+        joins[f"quality_{name}"] = join_launches() - before
     rel = abs(out["ivf"][0] - out["exact"][0]) / max(out["exact"][0], 1)
     log(f"parts: quality at full fraction, {QUALITY_ROWS} x 3, nbng "
         f"{QUALITY_NBNG}: IVF radius no_match {out['ivf'][0]} mean_matched "
         f"{out['ivf'][1]:.4f} in {out['ivf'][2]:.2f} s; exact radius no_match "
         f"{out['exact'][0]} mean_matched {out['exact'][1]:.4f} in "
-        f"{out['exact'][2]:.2f} s; relative difference {rel:.4f}")
+        f"{out['exact'][2]:.2f} s; relative difference {rel:.4f}; ivf_join "
+        f"launches {json.dumps(joins)}")
+    if joins["quality_exact"] or min(v for key, v in joins.items()
+                                     if key != "quality_exact") < 1:
+        raise AssertionError(f"parts: IVF join launches {joins}: the IVF "
+                             "builds must launch the kernel, the exact "
+                             "radius must not")
     if rel > QUALITY_NO_MATCH_REL:
         raise AssertionError(f"quality no_match through the IVF radius "
                              f"differs by {rel:.4f} > {QUALITY_NO_MATCH_REL}")
     g3 = info["kgraph"]
     return (y3.cpu(), (g3.indices.cpu(), g3.dists.cpu()), out["ivf"][3],
-            dense)
+            dense, joins)
 
 
 def _run_harness(args):
@@ -1717,6 +1889,7 @@ def _resumed(port, rec) -> bool:
     return (set(port["checkpoints"]) == {"graph_load_s", "embedding_load_s"}
             and "first_step" not in rec and "optimize_time" not in rec
             and port["top1_l2_launches"] == 0
+            and port["ivf_join_launches"] == 0
             and port["dense_sweep_launches"] == 0)
 
 
@@ -1749,7 +1922,7 @@ def phase_harness(labels, frac_s1):
     its caches written, then the same command again, which must load the
     projection and the embedding and run only the quality tail, then the
     tail at the harness's own quality defaults.  Returns the first run's
-    top-1 and dense sweep launches."""
+    top-1, dense sweep and IVF join launches."""
     from annembed_tpu_torch.io.checkpoint import load_embedding
     from annembed_tpu_torch.io.synthetic import label_purity
     with tempfile.TemporaryDirectory() as tmp:
@@ -1779,13 +1952,15 @@ def phase_harness(labels, frac_s1):
         f"{frac_s1} at S=1; recall@{KNN_K} {rec[f'recall@{KNN_K}']}; "
         f"embedded {KNN_K}-NN label purity {purity:.4f}; resumed in "
         f"{again['wall_s']} s, launches {port2['top1_l2_launches']}; dense "
-        f"sweep launches {json.dumps(port['dense_sweep_counts'])}")
+        f"sweep launches {json.dumps(port['dense_sweep_counts'])}; ivf_join "
+        f"launches {port['ivf_join_launches']}")
     if y.shape != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"harness embedding {tuple(y.shape)} or "
                              "non-finite")
     if port["top1_l2_launches"] < 1:
         raise AssertionError("the harness never launched top1_l2")
-    require_route("harness", port["dense_sweep_counts"], "persistent")
+    require_route("harness", port["dense_sweep_counts"], "persistent",
+                  port["ivf_join_launches"])
     if (rec["gather_reuse"], first["gather_reuse"]) != (
             HARNESS_GATHER_REUSE,) * 2:
         raise AssertionError("the harness's steps did not report "
@@ -1801,7 +1976,8 @@ def phase_harness(labels, frac_s1):
         raise AssertionError(
             f"harness frac_without_match {frac} is not S=1's {frac_s1} + "
             f"{HARNESS_FRAC_SHIFT} +- {HARNESS_FRAC_ABS}")
-    return port["top1_l2_launches"], port["dense_sweep_counts"]
+    return (port["top1_l2_launches"], port["dense_sweep_counts"],
+            port["ivf_join_launches"])
 
 
 def phase_knobs_io(at):
@@ -1927,6 +2103,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     out["a_wall"] = time.perf_counter() - t0
     out["a_launches"] = top1_l2.launches
     out["a_dense"] = dense_counts()
+    out["a_joins"] = join_launches()
     out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     mine = torch.tensor([rank_checksum(torch.from_numpy(y).to(dev))],
                         dtype=torch.int64, device=dev)
@@ -1954,6 +2131,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     if mesh.rank == 0:
         out["c_y"] = yd
     # (d) the full-fraction quality estimate through the sharded rebuild
+    reset_launches()
     t0 = time.perf_counter()
     q = at.quality_estimate(at.KGraph(indices=g3[0].to(dev),
                                       dists=g3[1].to(dev)),
@@ -1961,6 +2139,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
                             knn_params=at.KnnParams(knbn=KNN_K), mesh=mesh)
     out["d_wall"] = time.perf_counter() - t0
     out["d_frac"], out["d_search"] = q.frac_without_match, q.radius_search
+    out["d_joins"] = join_launches()
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 
@@ -1969,8 +2148,9 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
                y_dmap):
     """Phase 15: the sharded path on every card, held to the single
     device's readings of phases 4, 5, 6 and 4's parts.  Returns the
-    ranks' top1_l2 launch counts in (a) and their dense sweep kernel's
-    launches in (a) and (b)."""
+    ranks' top1_l2 launch counts in (a), their dense sweep kernel's
+    launches in (a) and (b) and their IVF join kernel's in (a) and
+    (d)."""
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
@@ -2016,6 +2196,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     launches = [r["a_launches"] for r in ranks]
     dense = {"a": [r["a_dense"] for r in ranks],
              "b": [r["b_dense"] for r in ranks]}
+    joins = {"a": [r["a_joins"] for r in ranks],
+             "d": [r["d_joins"] for r in ranks]}
     sums = [r["a_checksums"] for r in ranks]
     log(f"mesh (a): recall@{KNN_K}={recall:.4f} purity={purity:.4f}; large "
         f"graph vs phase 4's: {agree:.6f} of the clear columns equal, {rows} "
@@ -2024,7 +2206,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
         f", band +-{MESH_FRAC_ABS}); embedding checksums {sums[0]} (every "
         f"rank's gather equal: {all(s == sums[0] for s in sums)}); top1_l2 "
         f"launches {launches}; dense sweep launches (a) {dense['a']}, (b) "
-        f"{dense['b']}")
+        f"{dense['b']}; ivf_join launches (a) {joins['a']}, (d) "
+        f"{joins['d']}")
     if tuple(y.shape) != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError("mesh (a): embedding shape or non-finite")
     if recall < MIN_RECALL_IVF or purity < MIN_PURITY:
@@ -2039,7 +2222,8 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
                              f"{frac_s1}")
     for part in ("a", "b"):
         for rank, counts in enumerate(dense[part]):
-            require_route(f"mesh ({part}) rank {rank}", counts, "pair")
+            require_route(f"mesh ({part}) rank {rank}", counts, "pair",
+                          joins["a"][rank] if part == "a" else None)
     if min(launches) < 1 or info["n_devices"] != w:
         raise AssertionError(f"mesh (a): launches {launches}, dense {dense}, "
                              f"n_devices {info['n_devices']}")
@@ -2069,13 +2253,13 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     log(f"mesh (d): full-fraction quality of the {QUALITY_ROWS} x 3 "
         f"embedding, radius {json.dumps(r0['d_search'])}: "
         f"frac_without_match {fracs} vs the single device's {frac3}")
-    if r0["d_search"]["route"] != "ivf" or any(
+    if r0["d_search"]["route"] != "ivf" or min(joins["d"]) < 1 or any(
             not within_band(f, frac3, MESH_FULL_FRAC_ABS) for f in fracs):
         raise AssertionError("mesh (d): the sharded rebuild's estimate is "
                              "off the single device's")
     if w > 1:
         phase_mesh_entry(at, w)
-    return launches, dense
+    return launches, dense, joins
 
 
 def phase_mesh_entry(at, w):
@@ -2176,11 +2360,15 @@ def main() -> int:
     t0 = time.perf_counter()
     sweep_shapes, persistent_runs, dispatch, profiles = phase_dense_sweep()
     log(f"phase 3b (dense sweep kernel): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    join_shapes = phase_join(x)
+    torch.cuda.empty_cache()
+    log(f"phase 3c (IVF join kernel): {time.perf_counter() - t0:.2f} s")
 
     # phase 4: the main path at full size, then the exact hierarchical
     # path at a smaller depth, then the parts of the IVF build
     t0 = time.perf_counter()
-    launches, main_dense, main_info, y = _hierarchical(
+    launches, main_dense, main_info, y, main_joins = _hierarchical(
         at, x, labels, MAIN_BATCHES, HIGGS_KNN, MIN_RECALL_IVF, "main path",
         with_quality=True, quality_fraction=QUALITY_FRACTION,
         quality_nbng=QUALITY_NBNG)
@@ -2206,12 +2394,12 @@ def main() -> int:
     del graph, main_info
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    exact_launches, exact_dense, _, _ = _hierarchical(
+    exact_launches, exact_dense, _, _, exact_joins = _hierarchical(
         at, x[:EXACT_ROWS].contiguous(), labels[:EXACT_ROWS], EXACT_BATCHES,
         dict(knbn=KNN_K), MIN_RECALL, "exact path")
     log(f"phase 4 (exact path): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    y3, g3, frac3, parts_dense = phase_parts(at, x)
+    y3, g3, frac3, parts_dense, parts_joins = phase_parts(at, x)
     log(f"phase 4 (parts): {time.perf_counter() - t0:.2f} s")
     del x
     torch.cuda.empty_cache()
@@ -2229,15 +2417,16 @@ def main() -> int:
     del blobs
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    harness_launches, harness_dense = phase_harness(labels, frac_s1)
+    harness_launches, harness_dense, harness_joins = phase_harness(
+        labels, frac_s1)
     log(f"phase 11 (harness): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     knob_dense = phase_knobs_io(at)
     log(f"phase 12 (dense knobs, IO): {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_launches, mesh_dense = phase_mesh(at, rows_path, labels, graph4,
-                                           frac_s1, y3, g3, frac3, y_dmap)
+    mesh_launches, mesh_dense, mesh_joins = phase_mesh(
+        at, rows_path, labels, graph4, frac_s1, y3, g3, frac3, y_dmap)
     work.cleanup()
     log(f"phase 15 (mesh of {torch.cuda.device_count()}): "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2308,7 +2497,30 @@ def main() -> int:
         "bound_ms": large_run["bound_ms"],
         "bound_by": large_run["bound_by"], "library_ms": None,
         "shapes": persistent_runs, "profiles": profiles}
-    log(json.dumps({"kernels": [top1, sweep, persistent]}))
+    # the join's numbers are those of phase 4's large-graph join (all 11M
+    # rows, bf16, k 12, nprobe 24; the twin timed once); its launches
+    # those of phase 4's main path (both graphs), every path's in
+    # launches_by_path
+    join_main = join_shapes[0]
+    join = {
+        "name": "ivf_join", "route": "cuda",
+        "source": "annembed_tpu_torch/csrc/ivf_join.cu",
+        "replaces": "annembed_tpu/knn/ivf.py:159",
+        "replaces_note": "an XLA lax.map of jnp code (:159-230, "
+                         "_ivf_join_sorted); the JAX package has no Pallas "
+                         "kernel for the join; no single PyTorch call "
+                         "computes it",
+        "launches": main_joins, "max_abs_err": join_main["max_abs_err"],
+        "ms": join_main["ms"], "plain_ms": join_main["twin_ms"],
+        "bound_ms": join_main["bound_ms"], "bound_by": join_main["bound_by"],
+        "library_ms": None,
+        "launches_by_path": {"main_path": main_joins,
+                             "exact_path": exact_joins,
+                             "parts": parts_joins,
+                             "harness": harness_joins},
+        "mesh_launches_by_rank": mesh_joins,
+        "shapes": join_shapes}
+    log(json.dumps({"kernels": [top1, sweep, persistent, join]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
