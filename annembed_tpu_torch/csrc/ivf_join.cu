@@ -31,8 +31,9 @@
 // windows, read once a virtual row, are ~30 GB (9 ms at 3.35 TB/s).  The
 // torch join writes and rereads a distance panel for every pair instead.
 //
-// Design (plain SIMT, FMA on the CUDA cores; a wgmma cross product is later
-// work):
+// Design (plain SIMT, FMA on the CUDA cores; csrc/ivf_join_tc.cu is the
+// same join with the cross products on the tensor cores, and
+// ops/ivf_join.py::join_route picks one of the two by shape):
 //   * one block of T threads per (virtual row, slice of T queries), one
 //     query a thread; blocks of a row are adjacent, so the row's windows
 //     come from L2 after the first;
@@ -53,15 +54,20 @@
 //     order), so equal values keep the lower slot, as the twin's top-k
 //     does; the square root is taken only for candidates whose d^2 is not
 //     already above a bound that implies a larger value;
-//   * the rerank reads the selected rows and the f32 query from memory, and
-//     sorts the list in place by insertion (stable);
+//   * the rerank (ivf_join_common.cuh::rerank_write) reads the selected
+//     rows and the f32 query from memory, and sorts the list in place by
+//     insertion (stable);
 //   * no atomics: every output row is written by its own thread, so two
 //     launches give the same bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "ivf_join_common.cuh"
+
 namespace {
+
+using namespace ivfj;
 
 // queries a block at most, candidates a tile (d <= 32), candidates a tile
 // and columns a chunk (d > 32)
@@ -73,30 +79,6 @@ constexpr int CHUNK = 32;
 // keeps for its tiles beside its lists
 constexpr int SMEM_LIMIT = 232448;
 constexpr int SMEM_TILES = 24 * 1024;
-
-struct JoinArgs {
-  const float* xs;       // (n + 1, d): the corpus in cell order, a zero row
-  const float* sqn;      // (n + 1,): |x|^2 of each row
-  const int* qstarts;    // (V,): first sorted position of each virtual row
-  const int* qparents;   // (V,): its cell
-  const int* starts;     // (cells,): first sorted position of each cell
-  const int* counts;     // (cells,): members of each cell
-  const int* nbrs;       // (nlist, nprobe): probed cells, own cell first
-  int* out_idx;          // (n, k)
-  float* out_dist;       // (n, k)
-  long long row0, row_step;  // this launch's virtual rows: row0 + b row_step
-  int n, d, k, nprobe, qcap, cap, slices, bf16;
-};
-
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
-
-// round to the nearest bf16, ties to even (torch's .to(torch.bfloat16))
-__device__ __forceinline__ float bf16_round(float x) {
-  unsigned u = __float_as_uint(x);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return x;
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return __uint_as_float(u & 0xffff0000u);
-}
 
 // A thread's running top-k, ascending, in dynamic shared memory: slot i
 // of thread t at [i T + t] (k values, then k ids)
@@ -130,35 +112,7 @@ struct TopK {
     id[i * stride] = s;
   }
   __device__ __forceinline__ void finish(const JoinArgs& a, int qpos) {
-    const float* q = a.xs + static_cast<long long>(qpos) * a.d;
-    for (int i = 0; i < k; ++i) {
-      const float x = v[i * stride];
-      if (x == inf_f()) break;
-      const float* c = a.xs + static_cast<long long>(id[i * stride]) * a.d;
-      float s = 0.0f;
-      for (int j = 0; j < a.d; ++j) {
-        const float t = q[j] - c[j];
-        s += t * t;
-      }
-      v[i * stride] = sqrtf(fmaxf(s, 0.0f));
-    }
-    for (int i = 1; i < k; ++i) {
-      const float x = v[i * stride];
-      const int s = id[i * stride];
-      int j = i;
-      while (j > 0 && v[(j - 1) * stride] > x) {
-        v[j * stride] = v[(j - 1) * stride];
-        id[j * stride] = id[(j - 1) * stride];
-        --j;
-      }
-      v[j * stride] = x;
-      id[j * stride] = s;
-    }
-    const long long row = static_cast<long long>(qpos) * a.k;
-    for (int i = 0; i < k; ++i) {
-      a.out_idx[row + i] = id[i * stride];
-      a.out_dist[row + i] = v[i * stride];
-    }
+    rerank_write<1>(a, qpos, v, id, stride);
   }
 };
 
@@ -319,13 +273,14 @@ template <int DC, bool MULTI>
 int launch_instance(JoinArgs a, long long rows, cudaStream_t st) {
   const int threads = block_threads(a.k);
   if (threads < 32) return static_cast<int>(cudaErrorInvalidValue);
+  // the lists, opted in at every size: beside the tiles' static arrays
+  // they pass the default 48 KB of a block before they reach it alone
+  // (k 32 at d 17-32 did)
   const int smem = 8 * a.k * threads;
-  if (smem > 48 * 1024) {
-    const int err = static_cast<int>(cudaFuncSetAttribute(
-        ivf_join_kernel<DC, MULTI>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    if (err != 0) return err;
-  }
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      ivf_join_kernel<DC, MULTI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
   a.slices = (a.qcap + threads - 1) / threads;
   const long long blocks = rows * a.slices;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -376,6 +331,8 @@ extern "C" int ivf_join_launch(const void* xs, const void* sqn,
   a.cap = cap;
   a.slices = 1;
   a.bf16 = bf16;
+  a.rank_v = nullptr;
+  a.rank_i = nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d <= 4) return launch_instance<4, false>(a, rows, st);
   if (d <= 8) return launch_instance<8, false>(a, rows, st);

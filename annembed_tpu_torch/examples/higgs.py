@@ -20,7 +20,8 @@ The last stdout line has the keys of the JAX harness's record
 sampled rows, the quality summary).  The port's own fields
 (``graph_build_phases``, ``projection_distance_quantiles``,
 ``checkpoints`` with the cache load and save seconds, the top-1
-kernel's and the dense sweep kernel pair's launches, the quality radius
+kernel's, the dense sweep kernel pair's and each IVF join kernel's
+launches, the quality radius
 search's route, seconds and certificate fallbacks, peak host and device
 memory) go to stderr as one line starting ``port:``.
 
@@ -49,7 +50,7 @@ from annembed_tpu_torch.io.synthetic import (synthetic_clustered_manifold,
                                              synthetic_higgs)
 from annembed_tpu_torch.knn.api import sampled_exact_recall
 from annembed_tpu_torch.ops.dense_sweep import launch_counts
-from annembed_tpu_torch.ops.ivf_join import ivf_join
+from annembed_tpu_torch.ops import ivf_join as ij
 from annembed_tpu_torch.ops.top1 import top1_l2
 
 #: ``info`` fields the JAX harness's record does not carry
@@ -245,7 +246,7 @@ def main(argv=None) -> int:
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
     port["top1_l2_launches"] = top1_l2.launches
-    port["ivf_join_launches"] = ivf_join.launches
+    port["ivf_join_counts"] = ij.launch_counts()
     counts = launch_counts()
     port["dense_sweep_launches"] = counts["pair"] + counts["persistent"]
     port["dense_sweep_counts"] = counts

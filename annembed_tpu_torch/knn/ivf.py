@@ -21,8 +21,9 @@ every result, is the same.  ``layout="sorted"`` reorders the corpus by
 cell once, so queries and candidate windows are ranges of positions;
 ``layout="gathered"`` reads them through id tables.  Both give the same
 bits.  On a CUDA tensor the sorted layout's DistL2 join is one launch of
-the hand-written kernel of ops/ivf_join.py, which writes no panel and
-agrees with the torch join outside near-ties (``join_on_kernel``).
+a hand-written kernel of ops/ivf_join.py (the tensor-core one or the
+SIMT one, by d and k), which writes no panel and
+agrees with the torch join outside near-ties (``join_route``).
 
 Tables are int32 in memory (n k and every position fit); they are
 widened where torch wants an int64 index.
@@ -37,7 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.ivf_join import ivf_join
+from ..ops.ivf_join import ivf_join, join_route
 from ..utils.profiling import PhaseTimer
 from .brute import _topk_lowest_index, check_knobs
 from .distances import (PANEL_BYTES, USES_SQNORM, check_distance,
@@ -310,16 +311,6 @@ def _ivf_join(x_pad, virt_table, virt_parent, cand_table, cell_nbrs, k: int,
                      panel_bytes, mesh)
 
 
-def join_on_kernel(device_type: str, layout: str, distance: str) -> bool:
-    """Whether the local join runs the kernel of ops/ivf_join.py: the
-    cell-sorted layout, DistL2 and a CUDA tensor.  Every other
-    combination (the CPU, the gathered layout, the four other metrics)
-    runs the torch join by this dispatch, never because a kernel failed:
-    a failed build or launch raises."""
-    return (device_type == "cuda" and layout == "sorted"
-            and distance == "DistL2")
-
-
 def _strip_grid_assign(xq: torch.Tensor, g: int):
     """Strip-balanced 2-D partition: g equal-mass strips by rank of dim
     0, then g equal-count cells by rank of dim 1 within each strip.
@@ -470,7 +461,7 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
     ``panel_bytes`` bounds one batch's f32 distance panel of the torch
     join; the results do not depend on it, nor on ``layout``.  On a CUDA
     tensor, ``layout="sorted"`` with DistL2 runs the join as one launch
-    of the kernel of ops/ivf_join.py (``join_on_kernel``), which agrees
+    of the kernel of ops/ivf_join.py (``join_route``), which agrees
     with the torch join outside near-ties; the gathered layout and the
     other metrics run the torch join.  ``mesh`` (parallel/sharded.py,
     through ``sharded_knn_graph_ivf``) splits the join over the ranks
@@ -577,9 +568,10 @@ def _knn_graph_ivf_sorted(x, cells, cell_nbrs, pad_cell: bool, k: int,
     n = x.shape[0]
     order32, xs_pad, qstarts, virt_parent, starts, counts = sorted_plan(
         x, cells, pad_cell, nlist, qcap)
-    if join_on_kernel(x.device.type, "sorted", distance):
-        # every virtual row of this rank in one launch; the others' rows
-        # are 0 until the sum
+    if join_route(x.device.type, "sorted", distance, x.shape[1],
+                  k) != "torch":
+        # one kernel launch (the one join_route gives d and k) over every
+        # virtual row of this rank; the others' rows are 0 until the sum
         rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
         idx_s, dist_s = ivf_join(xs_pad, corpus_sqnorm(xs_pad), qstarts,
                                  virt_parent, starts, counts, cell_nbrs, k,

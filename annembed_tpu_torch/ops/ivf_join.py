@@ -1,4 +1,4 @@
-"""The IVF local join of the cell-sorted layout as a hand-written kernel.
+"""The IVF local join of the cell-sorted layout as hand-written kernels.
 
 ``ivf_join`` computes, for DistL2, what knn/ivf.py's torch join
 (``_ivf_join_sorted``) computes: for every query position of every
@@ -6,14 +6,19 @@ virtual row of the row plan, the k nearest candidates of the windows of
 the cells its row probes, the query itself left out, ties to the lower
 slot (probe order, then position in the window), selected on
 sqrt(max(|q|^2 + |c|^2 - 2 q.c, 0)) with the cross product in ``dtype``
-and reranked by the exact f32 distance.  On CUDA tensors it launches
-``csrc/ivf_join.cu`` once (a failed build or launch raises); on CPU
-tensors it runs ``ivf_join_reference``, which is that torch join.  The
-JAX package runs the join as an XLA ``lax.map`` of jnp code
+and reranked by the exact f32 distance.  On CUDA tensors it launches one
+of two kernels once, by shape (``join_route``): ``csrc/ivf_join_tc.cu``,
+the cross products on the tensor cores (bf16 ``wgmma``, or 3xTF32 for
+f32) and the running top-k filtered in the accumulator's registers, or
+``csrc/ivf_join.cu``, one query a thread on the CUDA cores, for the
+shapes where the first measured slower; a failed build or launch
+raises.  On
+CPU tensors it runs ``ivf_join_reference``, which is that torch join.
+The JAX package runs the join as an XLA ``lax.map`` of jnp code
 (annembed_tpu/knn/ivf.py:159-230); it has no Pallas kernel for it.
 
 Outputs are (n, k): idx int32 sorted positions, dist float32, a row
-with fewer than k candidates ending in dist = inf (the kernel's id
+with fewer than k candidates ending in dist = inf (the kernels' id
 there is n; the twin's may be any), before the caller's
 ``_fixup_underfilled``.  With ``rank`` / ``size`` only the virtual rows
 rank, rank + size, ... are joined and the other rows are 0, for a
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -36,6 +42,35 @@ _F32, _I32 = torch.float32, torch.int32
 #: expansion rounds at that scale, in another summation order on each
 #: side), and the exact distances of common ids within DIST_REL
 TIE_REL, DIST_REL = 1e-5, 1e-5
+#: The rule sends a join to the tensor-core kernel where that kernel
+#: measured faster than the SIMT kernel, else to the SIMT kernel, which
+#: serves every d and k.  TC_MAX_D: the padded operand row (d + 3 bf16 or
+#: d + 1 TF32 columns) fits in 32.  TC_MIN_D: for each register list (k <=
+#: 12, k <= 24), the least d the tensor-core kernel takes.  TC_MAX_K: a
+#: 32-slot list (k 25-32, one warpgroup a block) was slower at every d, so
+#: the kernel has none.  The readings: PERF.md section 5
+#: (tools/torch_join_variants.py, H100 80GB HBM3 at 700 W)
+TC_MAX_D, TC_MAX_K = 29, 24
+TC_MIN_D = ((12, 4), (TC_MAX_K, 16))
+ROUTES = ("simt", "tc")
+
+
+def join_route(device_type: str, layout: str, distance: str, d: int,
+               k: int) -> str:
+    """Where the local join of (device, layout, metric, d, k) runs:
+    "torch" (the torch join of knn/ivf.py: the CPU, the gathered layout,
+    the four other metrics), "tc" (``csrc/ivf_join_tc.cu``: the
+    cell-sorted DistL2 join on a CUDA tensor at 4 <= d <= TC_MAX_D for k
+    <= 12 and 16 <= d <= TC_MAX_D for 12 < k <= TC_MAX_K, TC_MIN_D) or
+    "simt" (``csrc/ivf_join.cu``: the same join at every other d and k).
+    By shape only, never because a kernel failed: a failed build or
+    launch raises."""
+    if (device_type, layout, distance) != ("cuda", "sorted", "DistL2"):
+        return "torch"
+    for most_k, least_d in TC_MIN_D:
+        if k <= most_k:
+            return "tc" if least_d <= d <= TC_MAX_D else "simt"
+    return "simt"
 
 
 def _check(xs_pad, sqnorm, qstarts, qparents, starts, counts, cell_nbrs,
@@ -81,9 +116,19 @@ def ivf_join_reference(xs_pad, sqnorm, qstarts, qparents, starts, counts,
                             "DistL2")
 
 
-def _bind(lib):
-    """The launcher of a built ``ivf_join`` library, typed, and its
-    largest k."""
+class Kernel(NamedTuple):
+    """A built join library's entry points: ``launch`` (the arguments of
+    ``_launch_args``, then, when ``operand_bytes`` is given (the
+    tensor-core route), the operand scratch and the optional ranked
+    outputs, then the stream), ``max_k(d, bf16, nprobe)`` and
+    ``operand_bytes(n, d, bf16)`` (None: no scratch)."""
+    launch: Callable
+    max_k: Callable
+    operand_bytes: Optional[Callable] = None
+
+
+def _bind(lib) -> Kernel:
+    """The SIMT library's launcher, typed, and its largest k."""
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn = lib.ivf_join_launch
     fn.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 7 + [ptr]
@@ -91,17 +136,38 @@ def _bind(lib):
     max_k = lib.ivf_join_max_k
     max_k.argtypes = []
     max_k.restype = ctypes.c_int
-    return fn, max_k()
+    largest = max_k()
+    return Kernel(fn, lambda d, bf16, nprobe: largest)
+
+
+def _bind_tc(lib) -> Kernel:
+    """The tensor-core library's launcher, its largest k and its operand
+    scratch, typed."""
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = lib.ivf_join_tc_launch
+    fn.argtypes = [ptr] * 9 + [i64] * 3 + [i32] * 7 + [ptr] * 4
+    fn.restype = ctypes.c_int
+    max_k = lib.ivf_join_tc_max_k
+    max_k.argtypes = [i32] * 3
+    max_k.restype = ctypes.c_int
+    nbytes = lib.ivf_join_tc_operand_bytes
+    nbytes.argtypes = [i32] * 3
+    nbytes.restype = ctypes.c_longlong
+    return Kernel(fn, max_k, nbytes)
 
 
 @functools.cache
-def _kernel():
-    return _bind(load_library("ivf_join"))
+def _kernel(route: str) -> Kernel:
+    if route == "simt":
+        return _bind(load_library("ivf_join"))
+    if route == "tc":
+        return _bind_tc(load_library("ivf_join_tc"))
+    raise ValueError(f"unknown join kernel route {route!r}")
 
 
 def _launch_args(xs_pad, sqnorm, qstarts, qparents, starts, counts,
                 cell_nbrs, idx, dist, k, qcap, cap, dtype, rank=0, size=1):
-    """``ivf_join_launch``'s arguments, all but the stream."""
+    """The launchers' common arguments, before the scratch and stream."""
     v = qstarts.shape[0]
     rows = max(0, -(-(v - rank) // size))
     return (xs_pad.data_ptr(), sqnorm.data_ptr(), qstarts.data_ptr(),
@@ -111,24 +177,46 @@ def _launch_args(xs_pad, sqnorm, qstarts, qparents, starts, counts,
             cell_nbrs.shape[1], qcap, cap, int(dtype == "bfloat16"))
 
 
-def _join(launch, max_k, stream, xs_pad, sqnorm, qstarts, qparents, starts,
-          counts, cell_nbrs, k, qcap, cap, dtype="float32", rank=0, size=1):
-    """The kernel branch of ``ivf_join``: checks, zeroed outputs, one
-    call of ``launch`` (a built library's launcher, or its host build's)
-    on ``stream``, a raise on an error.  Returns (idx, dist)."""
+def _join(kernel: Kernel, stream, xs_pad, sqnorm, qstarts, qparents, starts,
+          counts, cell_nbrs, k, qcap, cap, dtype="float32", rank=0, size=1,
+          ranked=False):
+    """The kernel branch of ``ivf_join``: checks, zeroed outputs, the
+    operand scratch, one call of ``kernel.launch`` (a built library's,
+    or its host build's) on ``stream``, a raise on an error; no count
+    moves.  Returns (idx, dist), and with ``ranked`` (the tensor-core
+    route; a diagnostic of the checks, ``expansion_error``) also the ids
+    and the ranked values of the selected entries before the rerank,
+    (n, k) each, in selection order.  Checks that time or hold one
+    route whatever the rule says call this with ``_kernel(route)``."""
     _check(xs_pad, sqnorm, qstarts, qparents, starts, counts, cell_nbrs, k,
            qcap, cap, dtype, rank, size)
-    if k > max_k:
-        raise ValueError(f"k={k} above the join kernel's largest, {max_k}")
-    n = xs_pad.shape[0] - 1
-    idx = torch.zeros((n, k), dtype=_I32, device=xs_pad.device)
-    dist = torch.zeros((n, k), dtype=_F32, device=xs_pad.device)
-    err = launch(*_launch_args(xs_pad, sqnorm, qstarts, qparents, starts,
-                               counts, cell_nbrs, idx, dist, k, qcap, cap,
-                               dtype, rank, size), stream)
+    n1, d = xs_pad.shape
+    bf16 = int(dtype == "bfloat16")
+    largest = kernel.max_k(d, bf16, cell_nbrs.shape[1])
+    if k > largest:
+        raise ValueError(f"k={k} above the join kernel's largest, {largest}")
+    dev = xs_pad.device
+    idx = torch.zeros((n1 - 1, k), dtype=_I32, device=dev)
+    dist = torch.zeros((n1 - 1, k), dtype=_F32, device=dev)
+    args = _launch_args(xs_pad, sqnorm, qstarts, qparents, starts, counts,
+                        cell_nbrs, idx, dist, k, qcap, cap, dtype, rank, size)
+    scratch, out = None, (idx, dist)
+    if ranked:
+        if kernel.operand_bytes is None:
+            raise ValueError("only the tensor-core route reports ranked "
+                             "values")
+        out += (torch.zeros_like(idx), torch.zeros_like(dist))
+    if kernel.operand_bytes is not None:
+        scratch = torch.empty(kernel.operand_bytes(n1 - 1, d, bf16),
+                              dtype=torch.uint8, device=dev)
+        args += (scratch.data_ptr(),
+                 out[3].data_ptr() if ranked else None,
+                 out[2].data_ptr() if ranked else None)
+    err = kernel.launch(*args, stream)
+    del scratch
     if err != 0:
         raise RuntimeError(f"ivf_join kernel launch failed: CUDA error {err}")
-    return idx, dist
+    return out
 
 
 def ivf_join(xs_pad, sqnorm, qstarts, qparents, starts, counts, cell_nbrs,
@@ -141,23 +229,35 @@ def ivf_join(xs_pad, sqnorm, qstarts, qparents, starts, counts, cell_nbrs,
     with the sentinel empty cell where ``cell_nbrs`` (nlist, nprobe) holds
     it, all int32.  Returns (idx (n, k) int32, dist (n, k) float32).
 
-    CUDA tensors launch the kernel once (adding one to
-    ``ivf_join.launches``); a build or launch the card refuses raises.
-    CPU tensors run ``ivf_join_reference``."""
+    CUDA tensors launch once the kernel that ``join_route`` gives (d, k),
+    adding one to its count in ``launch_counts()``; a build or launch the
+    card refuses raises.  CPU tensors run ``ivf_join_reference``."""
     if xs_pad.device.type != "cuda":
         return ivf_join_reference(xs_pad, sqnorm, qstarts, qparents, starts,
                                   counts, cell_nbrs, k, qcap, cap, dtype,
                                   rank, size)
+    route = join_route("cuda", "sorted", "DistL2", xs_pad.shape[1], k)
     with torch.cuda.device(xs_pad.device):
-        out = _join(*_kernel(),
+        out = _join(_kernel(route),
                     torch.cuda.current_stream(xs_pad.device).cuda_stream,
                     xs_pad, sqnorm, qstarts, qparents, starts, counts,
                     cell_nbrs, k, qcap, cap, dtype, rank, size)
-    ivf_join.launches += 1
+    _LAUNCHES[route] += 1
     return out
 
 
-ivf_join.launches = 0
+_LAUNCHES = dict.fromkeys(ROUTES, 0)
+
+
+def launch_counts() -> dict:
+    """Launches of each join kernel since the last reset: ``simt`` and
+    ``tc``."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for route in ROUTES:
+        _LAUNCHES[route] = 0
 
 
 def ranked_value(xs_pad, qpos, cpos, dtype: str):
@@ -222,3 +322,27 @@ def join_agreement(xs_pad, dtype: str, got_i, got_d, want_i, want_d):
         out["mismatch_ids"] = out["mismatch_ids"][:20]
         out["near_tie_rows"] += int((~bad).sum())
     return out
+
+
+def expansion_error(xs_pad, dtype: str, rank_i, rank_v) -> float:
+    """The largest |e - e_exact| / (|q|^2 + |c|^2) over the selected
+    entries of a ``ranked`` join (``rank_i`` / ``rank_v`` (n, k): ids and
+    values sqrt(max(e, 0)) before the rerank; inf past a row's
+    candidates): e read back as the value's square, e_exact by
+    ``ranked_value`` in float64, both clamped at 0 as the join ranks
+    them.  The expansion's own rounding, against TIE_REL."""
+    n, k = rank_i.shape
+    chunk = max(1, (1 << 24) // k)
+    worst = 0.0
+    for r0 in range(0, n, chunk):
+        v = rank_v[r0:r0 + chunk].double()
+        ids = rank_i[r0:r0 + chunk].long()
+        ok = torch.isfinite(v)
+        qpos = torch.arange(r0, r0 + v.shape[0], device=v.device)[:, None]
+        exact, scale = ranked_value(xs_pad, qpos, ids.clamp_max(n - 1),
+                                    dtype)
+        err = ((v * v - exact).abs() / scale.clamp_min(1e-30))[ok]
+        if err.numel():
+            worst = max(worst, float(err.max()))
+    return worst
+

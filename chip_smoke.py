@@ -34,15 +34,17 @@ CUDA device it exits 1 before printing any result):
    its node blocks at d = 3 (rows from an odd start) against the CPU;
    ``torch.profiler`` over a large-step and a first-step segment,
    persistent and pair;
-3c. the IVF join kernel (``ops/ivf_join.py``) against its twin, the
-   torch join, on the same plan, every row through the fix-up: phase 4's
-   large-graph join (all 11,000,000 rows, bf16, k 12, nprobe 24; the
-   twin once), the first 1,000,000 rows in f32 and in bf16 (the parts'
-   knobs), 5,003 rows of small integers with ties and underfilled rows
-   (bit-equal), and 300,000 x 3 at k 51 (the quality estimate's IVF
-   radius search, the shared-list instance); ids equal outside
-   near-ties of the ranked value, dists within 1e-5 relative, two
-   launches bit-equal, timed beside ``join_bounds``;
+3c. the two IVF join kernels (``ops/ivf_join.py``: the tensor-core one
+   and the SIMT one, each where it serves the shape) against their twin,
+   the torch join, on the same plan, every row through the fix-up:
+   phase 4's large-graph join (all 11,000,000 rows, bf16, k 12, nprobe
+   24; the twin once), the first 1,000,000 rows in f32 and in bf16 (the
+   parts' knobs), 5,003 rows of small integers with ties and
+   underfilled rows (bit-equal), and 300,000 x 3 at k 51 (the quality
+   estimate's IVF radius search: the SIMT kernel alone); ids equal
+   outside near-ties of the ranked value, dists within 1e-5 relative,
+   two launches bit-equal, the tensor-core kernel's expansion error
+   within TIE_REL, each timed beside ``join_bounds``;
 4. the main path: ``embed(x, layer=1)`` on 11,000,000 x 28 Higgs-shaped
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
@@ -175,7 +177,7 @@ D2_REL = 1e-5
 MIN_RECALL = 0.99                # exact graphs
 MIN_PURITY = 0.9
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("top1_l2", "dense_sweep", "ivf_join")
+KERNEL_SOURCES = ("top1_l2", "dense_sweep", "ivf_join", "ivf_join_tc")
 # phase 3: the kernel's other shapes on the path (bench rows at the
 # default hierarchy fraction); the H100 SXM data sheet's peaks for the
 # bounds
@@ -199,15 +201,20 @@ SWEEP_SMALL_ROWS = 5_003
 PERSISTENT_LARGE_STEPS, PERSISTENT_SMALL_STEPS = 60, 200
 PERSISTENT_KNOB_STEPS = 20
 
-# phase 3c: the IVF join kernel against the torch join (the twin) on the
-# same plan: phase 4's large-graph join (all 11M rows, k 12 = 2 knbn,
+# phase 3c: both IVF join kernels against the torch join (the twin) on
+# the same plan: phase 4's large-graph join (all 11M rows, k 12 = 2 knbn,
 # nprobe 24, bf16), the parts' 1M graphs (default nprobe 32) in f32 and
 # bf16, a ragged case of small-integer rows (exact: ties and underfilled
 # rows bit-equal to the twin), and the quality estimate's IVF radius
-# search at k 51 on 300,000 x 3 rows (the shared-list instance).  Ids
-# must agree outside near-ties of the ranked value (TIE_REL of
-# |q|^2 + |c|^2) and dists within 1e-5 relative (ops/ivf_join.py)
+# search at k 51 on 300,000 x 3 rows (the SIMT kernel's shared-memory
+# lists; the tensor-core kernel's registers hold k <= 24); beside them the
+# 1M f32 slice at the default knobs' build k (2 x knbn 10) and at k 32
+# (knbn 16), the SIMT kernel's there (its lists and tiles pass 48 KB of
+# shared memory).  Ids must agree outside near-ties of the ranked value
+# (TIE_REL of |q|^2 + |c|^2) and dists within 1e-5 relative
+# (ops/ivf_join.py)
 JOIN_K = 2 * KNN_K
+JOIN_DEFAULT_K, JOIN_WIDE_K = 20, 32
 JOIN_SMALL_ROWS, JOIN_SMALL_K, JOIN_SMALL_NLIST = 5_003, 20, 400
 JOIN_QUALITY_K = QUALITY_NBNG + 1
 H100_BF16_FLOPS = 989e12
@@ -448,18 +455,25 @@ def check_kernel(name, q, c, reps, once=False):
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from annembed_tpu_torch.ops.dense_sweep import reset_launch_counts
-    from annembed_tpu_torch.ops.ivf_join import ivf_join
+    from annembed_tpu_torch.ops import dense_sweep, ivf_join
     from annembed_tpu_torch.ops.top1 import top1_l2
     top1_l2.launches = 0
-    ivf_join.launches = 0
-    reset_launch_counts()
+    ivf_join.reset_launch_counts()
+    dense_sweep.reset_launch_counts()
 
 
-def join_launches() -> int:
-    """IVF join kernel launches since the last reset."""
-    from annembed_tpu_torch.ops.ivf_join import ivf_join
-    return ivf_join.launches
+def join_counts() -> dict:
+    """Each IVF join kernel's launches since the last reset: ``simt``
+    (csrc/ivf_join.cu) and ``tc`` (csrc/ivf_join_tc.cu)."""
+    from annembed_tpu_torch.ops.ivf_join import launch_counts
+    return launch_counts()
+
+
+def join_since(before: dict) -> dict:
+    """Each IVF join kernel's launches since ``before`` (a
+    ``join_counts()``)."""
+    now = join_counts()
+    return {route: now[route] - before[route] for route in now}
 
 
 def dense_counts() -> dict:
@@ -476,21 +490,30 @@ def dense_launches() -> int:
     return counts["pair"] + counts["persistent"]
 
 
-def require_route(tag, counts, route, joins=None) -> None:
+def require_route(tag, counts, route, joins=None, join_route="tc") -> None:
     """The dense sweeps of a path went through ``route``: "persistent"
     (persistent launches and no pair), "pair" (pairs and no persistent
     launch) or None (no dense sweep kernel); with ``joins`` (the path's
-    IVF join kernel launches) given, its IVF graph builds launched the
-    join kernel."""
+    ``join_counts()``) given, its IVF joins went through ``join_route``
+    alone (``require_join_route``)."""
     pair, persistent = counts["pair"] > 0, counts["persistent"] > 0
     if (pair, persistent) != {"persistent": (False, True),
                               "pair": (True, False),
                               None: (False, False)}[route]:
         raise AssertionError(f"{tag}: dense sweep launches {counts}, not "
                              f"the {route} route")
-    if joins is not None and joins < 1:
-        raise AssertionError(f"{tag}: the IVF join kernel was never "
-                             "launched")
+    if joins is not None:
+        require_join_route(tag, joins, join_route)
+
+
+def require_join_route(tag, joins, route) -> None:
+    """A path's IVF joins (``joins``, its ``join_counts()``) launched the
+    ``route`` kernel ("tc" or "simt") and not the other: the route the
+    rule (``ops.ivf_join.join_route``) gives its shapes."""
+    other = {"tc": "simt", "simt": "tc"}[route]
+    if joins[route] < 1 or joins[other]:
+        raise AssertionError(f"{tag}: IVF join launches {joins}, not the "
+                             f"{route} route")
 
 
 def join_bounds(inp, dtype):
@@ -499,8 +522,10 @@ def join_bounds(inp, dtype):
     once) at 3.35 TB/s and its cross products, 2 d flop for each
     query-candidate pair of the plan, in bf16 at 989 TFLOP/s or
     f32-accurate (three TF32 products) at 495; beside it the f32 CUDA
-    cores' bound (2 d flop a pair at 67 TFLOP/s) and the time of the
-    candidate windows' bytes read once a virtual row."""
+    cores' bound (2 d flop a pair at 67 TFLOP/s), the time of the
+    candidate windows' bytes read once a virtual row, and ``select_ms``:
+    one compare a pair at the CUDA cores' issue rate (67e12 / 2 a
+    second), the least a selection that looks at every pair costs."""
     xs = inp["xs_pad"]
     n1, d = xs.shape
     n, k = n1 - 1, inp["k"]
@@ -523,64 +548,94 @@ def join_bounds(inp, dtype):
     return dict(pairs=pairs, bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 bound_f32_ms=max(1e3 * flops / H100_F32_FLOPS, bytes_ms),
-                windows_ms=1e3 * window_bytes / H100_BYTES_PER_S)
+                windows_ms=1e3 * window_bytes / H100_BYTES_PER_S,
+                select_ms=1e3 * pairs / (H100_F32_FLOPS / 2))
 
 
 def check_join(name, inp, dtype, reps, exact=False):
-    """The join kernel against the torch join on the same plan, both
-    through the fix-up: every row held (bit for bit with ``exact``, else
-    ``join_agreement``), two launches bit-equal, then the kernel timed
-    over ``reps`` launches beside its bound and the twin's one call."""
+    """Both join kernels (each that serves the shape) against the torch
+    join on the same plan, all through the fix-up: every row held (bit
+    for bit with ``exact``, else ``join_agreement``), two launches
+    bit-equal, the tensor-core route's expansion error (its ranked values
+    against float64) within TIE_REL, then each timed over ``reps``
+    launches beside the bounds and the twin's one call.  ``ms`` and
+    ``max_abs_err`` are the route the rule gives the shape; every route's
+    record is in ``routes``."""
     from annembed_tpu_torch.knn.ivf import _fixup_underfilled
-    from annembed_tpu_torch.ops.ivf_join import (DIST_REL, ivf_join,
-                                                 ivf_join_reference,
-                                                 join_agreement)
-    n = inp["xs_pad"].shape[0] - 1
-    got = ivf_join(**inp, dtype=dtype)
-    again = ivf_join(**inp, dtype=dtype)
-    torch.cuda.synchronize()
-    repeat = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
-    del again
+    from annembed_tpu_torch.ops import ivf_join as ij
+    n, d = inp["xs_pad"].shape[0] - 1, inp["xs_pad"].shape[1]
+    k, nprobe = inp["k"], inp["cell_nbrs"].shape[1]
     twin = {}
     twin_ms = cuda_once_ms(lambda: twin.update(
-        out=ivf_join_reference(**inp, dtype=dtype)))
+        out=ij.ivf_join_reference(**inp, dtype=dtype)))
     want = twin.pop("out")
     underfilled = int(torch.isinf(want[1]).any(1).sum())
-    gi, gd = _fixup_underfilled(*got, n)
     wi, wd = _fixup_underfilled(*want, n)
     del want
-    del got
-    agree = join_agreement(inp["xs_pad"], dtype, gi, gd, wi, wd)
-    same = gi == wi
-    max_abs = float((gd - wd)[same].abs().max()) if bool(same.any()) else 0.0
-    clear, rows_differ, _ = graph_agreement(gi.cpu(), gd.cpu(), wi.cpu(),
-                                            wd.cpu())
-    bits = torch.equal(gi, wi) and torch.equal(gd, wd)
-    del gi, gd, wi, wd, same
-    ms = cuda_ms(lambda: ivf_join(**inp, dtype=dtype), reps)
     b = join_bounds(inp, dtype)
-    v, nprobe = inp["qstarts"].shape[0], inp["cell_nbrs"].shape[1]
-    out = dict(shape=name, n=n, d=inp["xs_pad"].shape[1], k=inp["k"],
-               dtype=dtype, nprobe=nprobe, cap=inp["cap"], qcap=inp["qcap"],
-               virtual_rows=v, underfilled_rows=underfilled,
-               pairs=b["pairs"], ms=ms, twin_ms=twin_ms,
+    routes = {}
+    for route in ij.ROUTES:
+        kernel = ij._kernel(route)
+        if k > kernel.max_k(d, int(dtype == "bfloat16"), nprobe):
+            continue
+        # the route's kernel whatever the rule says, and no count moves
+        stream = torch.cuda.current_stream().cuda_stream
+        got = ij._join(kernel, stream, **inp, dtype=dtype,
+                       ranked=route == "tc")
+        extra = {}
+        if route == "tc":
+            extra["expansion_err"] = ij.expansion_error(
+                inp["xs_pad"], dtype, got[2], got[3])
+            got = got[:2]
+        again = ij._join(kernel, stream, **inp, dtype=dtype)
+        torch.cuda.synchronize()
+        repeat = (torch.equal(got[0], again[0])
+                  and torch.equal(got[1], again[1]))
+        del again
+        gi, gd = _fixup_underfilled(*got, n)
+        del got
+        agree = ij.join_agreement(inp["xs_pad"], dtype, gi, gd, wi, wd)
+        same = gi == wi
+        max_abs = (float((gd - wd)[same].abs().max()) if bool(same.any())
+                   else 0.0)
+        clear, rows_differ, _ = graph_agreement(gi.cpu(), gd.cpu(),
+                                                wi.cpu(), wd.cpu())
+        bits = torch.equal(gi, wi) and torch.equal(gd, wd)
+        del gi, gd, same
+        ms = cuda_ms(lambda: ij._join(kernel, stream, **inp, dtype=dtype),
+                     reps)
+        routes[route] = dict(ms=ms, share_of_bound=b["bound_ms"] / ms,
+                             repeat_bit_equal=repeat,
+                             bit_equal_to_twin=bits, max_abs_err=max_abs,
+                             clear_columns_equal=clear,
+                             rows_differing=rows_differ, **agree, **extra)
+        log(f"join {name} {route}: {json.dumps(routes[route])}")
+        if (not repeat or agree["mismatch_rows"] or agree["unsorted_rows"]
+                or agree["max_rel_dist_err"] > ij.DIST_REL
+                or (exact and not bits)
+                or extra.get("expansion_err", 0.0) > ij.TIE_REL):
+            raise AssertionError(f"the {route} join kernel disagrees with "
+                                 f"the torch join at {name}: "
+                                 f"{routes[route]}")
+    rule = ij.join_route("cuda", "sorted", "DistL2", d, k)
+    out = dict(shape=name, n=n, d=d, k=k, dtype=dtype, nprobe=nprobe,
+               cap=inp["cap"], qcap=inp["qcap"],
+               virtual_rows=inp["qstarts"].shape[0],
+               underfilled_rows=underfilled, pairs=b["pairs"], route=rule,
+               ms=routes[rule]["ms"], twin_ms=twin_ms,
                bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-               bound_f32_ms=b["bound_f32_ms"], windows_ms=b["windows_ms"],
-               share_of_bound=b["bound_ms"] / ms, library_ms=None,
-               repeat_bit_equal=repeat, bit_equal_to_twin=bits,
-               max_abs_err=max_abs, clear_columns_equal=clear,
-               rows_differing=rows_differ, **agree)
-    log(f"join {name}: {json.dumps(out)}")
-    if (not repeat or agree["mismatch_rows"] or agree["unsorted_rows"]
-            or agree["max_rel_dist_err"] > DIST_REL or (exact and not bits)):
-        raise AssertionError(f"ivf_join kernel disagrees with the torch "
-                             f"join at {name}: {out}")
+               bound_f32_ms=b["bound_f32_ms"], select_ms=b["select_ms"],
+               windows_ms=b["windows_ms"], library_ms=None,
+               max_abs_err=routes[rule]["max_abs_err"], routes=routes)
+    log(f"join {name}: " + json.dumps({key: v for key, v in out.items()
+                                         if key != "routes"}))
     return out
 
 
 def phase_join(x):
-    """Phase 3c: the IVF join kernel against its twin at the path's
-    shapes.  Returns each shape's record, phase 4's first."""
+    """Phase 3c: the IVF join kernels against their twin at the path's
+    shapes.  Returns each shape's record, phase 4's first, the quality
+    rebuild's last."""
     from annembed_tpu_torch.knn.ivf import sorted_join_inputs as plan
     rng = np.random.default_rng(SEED)
     shapes = [check_join("higgs_11m", plan(x, JOIN_K, nprobe=24), "bfloat16",
@@ -590,6 +645,9 @@ def phase_join(x):
     for dtype in ("float32", "bfloat16"):
         shapes.append(check_join(f"slice_1m_{dtype}",
                                  plan(xs, JOIN_K, nprobe=32), dtype, reps=5))
+    for k in (JOIN_DEFAULT_K, JOIN_WIDE_K):
+        shapes.append(check_join(f"slice_1m_float32_k{k}",
+                                 plan(xs, k, nprobe=32), "float32", reps=3))
     del xs
     ints = torch.from_numpy(rng.integers(-6, 7, (JOIN_SMALL_ROWS, 5))
                             .astype(np.float32)).to(x.device)
@@ -1484,7 +1542,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     wall = time.perf_counter() - t0
     launches = top1_l2.launches
     dense = dense_counts()
-    joins = join_launches()
+    joins = join_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     first = info["first_step"]
     # what is left of the total: edge probabilities, the jittered
@@ -1524,10 +1582,11 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     if launches < 1:
         raise AssertionError(f"{tag} never launched top1_l2")
     # every whole-array sweep through the persistent launch; every graph
-    # above the brute limit through the join kernel, and none below it
+    # above the brute limit through the tensor-core join kernel (d 28, k
+    # 12), and none below it
     ivf = n > at.KnnParams().brute_force_limit
     require_route(tag, dense, "persistent", joins if ivf else None)
-    if not ivf and joins:
+    if not ivf and sum(joins.values()):
         raise AssertionError(f"{tag}: {joins} join launches on exact graphs")
     if dense["persistent_sweeps"] != first["sweeps"] + info["sweeps"]:
         raise AssertionError(f"{tag}: {dense['persistent_sweeps']} sweeps "
@@ -1783,7 +1842,7 @@ def phase_parts(at, x):
     joins = {}
     xp = x[:PARTS_ROWS].contiguous()
     for dtype in ("float32", "bfloat16"):
-        before = join_launches()
+        before = join_counts()
         timer = PhaseTimer()
         t0 = time.perf_counter()
         g = build_kgraph(xp, KNN_K, params=at.KnnParams(knbn=KNN_K,
@@ -1792,7 +1851,7 @@ def phase_parts(at, x):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         recall = sampled_exact_recall(xp, g, sample=2000)
-        joins[f"graph_1m_{dtype}"] = join_launches() - before
+        joins[f"graph_1m_{dtype}"] = join_since(before)
         log(f"parts: IVF + NN-descent graph, {PARTS_ROWS} x {x.shape[1]}, "
             f"{dtype}, default knobs: {wall:.2f} s "
             f"{json.dumps(timer.timings)} recall@{KNN_K}={recall:.4f} "
@@ -1807,12 +1866,12 @@ def phase_parts(at, x):
     cloud = torch.from_numpy(
         (centers[rng.integers(0, 8, PARTS_ROWS)]
          + rng.normal(0, 0.8, (PARTS_ROWS, 2))).astype(np.float32)).to(dev)
-    before = join_launches()
+    before = join_counts()
     t0 = time.perf_counter()
     gi, gd = knn_graph_ivf(cloud, GRID_K, quantizer="grid")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    joins["grid_1m"] = join_launches() - before
+    joins["grid_1m"] = join_since(before)
     recall = sampled_exact_recall(cloud, KGraph(indices=gi, dists=gd),
                                   sample=2000)
     log(f"parts: grid quantizer, {PARTS_ROWS} x 2, k={GRID_K}: {wall:.2f} s "
@@ -1827,7 +1886,7 @@ def phase_parts(at, x):
     y3, info = at.embed(x[:QUALITY_ROWS].cpu().numpy(), dim=3, nbng=KNN_K,
                         batch=5, seed=SEED, return_graph=True, device="cuda")
     dense = dense_counts()
-    joins["embed_300k"] = join_launches()
+    joins["embed_300k"] = join_counts()
     log(f"parts: {QUALITY_ROWS} x 3 embedding, {info['sweeps']} sweeps, "
         f"dense sweep launches={json.dumps(dense)}, ivf_join launches="
         f"{joins['embed_300k']}")
@@ -1836,7 +1895,7 @@ def phase_parts(at, x):
     out = {}
     for name, limit in (("ivf", at.KnnParams().brute_force_limit),
                         ("exact", QUALITY_ROWS)):
-        before = join_launches()
+        before = join_counts()
         t0 = time.perf_counter()
         q = at.quality_estimate(
             info["kgraph"], y3, nbng=QUALITY_NBNG,
@@ -1844,7 +1903,7 @@ def phase_parts(at, x):
         torch.cuda.synchronize()
         out[name] = (q.nb_without_match, q.mean_nb_matched,
                      time.perf_counter() - t0, q.frac_without_match)
-        joins[f"quality_{name}"] = join_launches() - before
+        joins[f"quality_{name}"] = join_since(before)
     rel = abs(out["ivf"][0] - out["exact"][0]) / max(out["exact"][0], 1)
     log(f"parts: quality at full fraction, {QUALITY_ROWS} x 3, nbng "
         f"{QUALITY_NBNG}: IVF radius no_match {out['ivf'][0]} mean_matched "
@@ -1852,11 +1911,17 @@ def phase_parts(at, x):
         f"{out['exact'][0]} mean_matched {out['exact'][1]:.4f} in "
         f"{out['exact'][2]:.2f} s; relative difference {rel:.4f}; ivf_join "
         f"launches {json.dumps(joins)}")
-    if joins["quality_exact"] or min(v for key, v in joins.items()
-                                     if key != "quality_exact") < 1:
-        raise AssertionError(f"parts: IVF join launches {joins}: the IVF "
-                             "builds must launch the kernel, the exact "
-                             "radius must not")
+    # each IVF build through the kernel the rule gives its shape: the 1M
+    # x 28 graphs and the 300k embedding's own (k 12) the tensor cores,
+    # the grid's 1M x 2 and the quality radius's rebuild (d 3, k 51) the
+    # SIMT kernel; the exact radius neither
+    if sum(joins["quality_exact"].values()):
+        raise AssertionError(f"parts: IVF join launches {joins}: the exact "
+                             "radius must launch no join kernel")
+    for part, route in (("graph_1m_float32", "tc"),
+                        ("graph_1m_bfloat16", "tc"), ("embed_300k", "tc"),
+                        ("grid_1m", "simt"), ("quality_ivf", "simt")):
+        require_join_route(f"parts {part}", joins[part], route)
     if rel > QUALITY_NO_MATCH_REL:
         raise AssertionError(f"quality no_match through the IVF radius "
                              f"differs by {rel:.4f} > {QUALITY_NO_MATCH_REL}")
@@ -1889,7 +1954,7 @@ def _resumed(port, rec) -> bool:
     return (set(port["checkpoints"]) == {"graph_load_s", "embedding_load_s"}
             and "first_step" not in rec and "optimize_time" not in rec
             and port["top1_l2_launches"] == 0
-            and port["ivf_join_launches"] == 0
+            and not sum(port["ivf_join_counts"].values())
             and port["dense_sweep_launches"] == 0)
 
 
@@ -1953,14 +2018,14 @@ def phase_harness(labels, frac_s1):
         f"embedded {KNN_K}-NN label purity {purity:.4f}; resumed in "
         f"{again['wall_s']} s, launches {port2['top1_l2_launches']}; dense "
         f"sweep launches {json.dumps(port['dense_sweep_counts'])}; ivf_join "
-        f"launches {port['ivf_join_launches']}")
+        f"launches {port['ivf_join_counts']}")
     if y.shape != (N_ROWS, 2) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"harness embedding {tuple(y.shape)} or "
                              "non-finite")
     if port["top1_l2_launches"] < 1:
         raise AssertionError("the harness never launched top1_l2")
     require_route("harness", port["dense_sweep_counts"], "persistent",
-                  port["ivf_join_launches"])
+                  port["ivf_join_counts"])
     if (rec["gather_reuse"], first["gather_reuse"]) != (
             HARNESS_GATHER_REUSE,) * 2:
         raise AssertionError("the harness's steps did not report "
@@ -1977,7 +2042,7 @@ def phase_harness(labels, frac_s1):
             f"harness frac_without_match {frac} is not S=1's {frac_s1} + "
             f"{HARNESS_FRAC_SHIFT} +- {HARNESS_FRAC_ABS}")
     return (port["top1_l2_launches"], port["dense_sweep_counts"],
-            port["ivf_join_launches"])
+            port["ivf_join_counts"])
 
 
 def phase_knobs_io(at):
@@ -2103,7 +2168,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     out["a_wall"] = time.perf_counter() - t0
     out["a_launches"] = top1_l2.launches
     out["a_dense"] = dense_counts()
-    out["a_joins"] = join_launches()
+    out["a_joins"] = join_counts()
     out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     mine = torch.tensor([rank_checksum(torch.from_numpy(y).to(dev))],
                         dtype=torch.int64, device=dev)
@@ -2139,7 +2204,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
                             knn_params=at.KnnParams(knbn=KNN_K), mesh=mesh)
     out["d_wall"] = time.perf_counter() - t0
     out["d_frac"], out["d_search"] = q.frac_without_match, q.radius_search
-    out["d_joins"] = join_launches()
+    out["d_joins"] = join_counts()
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     return out
 
@@ -2253,7 +2318,9 @@ def phase_mesh(at, rows_path, labels, graph4, frac_s1, y3, g3, frac3,
     log(f"mesh (d): full-fraction quality of the {QUALITY_ROWS} x 3 "
         f"embedding, radius {json.dumps(r0['d_search'])}: "
         f"frac_without_match {fracs} vs the single device's {frac3}")
-    if r0["d_search"]["route"] != "ivf" or min(joins["d"]) < 1 or any(
+    for rank, counts in enumerate(joins["d"]):
+        require_join_route(f"mesh (d) rank {rank}", counts, "simt")
+    if r0["d_search"]["route"] != "ivf" or any(
             not within_band(f, frac3, MESH_FULL_FRAC_ABS) for f in fracs):
         raise AssertionError("mesh (d): the sharded rebuild's estimate is "
                              "off the single device's")
@@ -2497,30 +2564,52 @@ def main() -> int:
         "bound_ms": large_run["bound_ms"],
         "bound_by": large_run["bound_by"], "library_ms": None,
         "shapes": persistent_runs, "profiles": profiles}
-    # the join's numbers are those of phase 4's large-graph join (all 11M
-    # rows, bf16, k 12, nprobe 24; the twin timed once); its launches
-    # those of phase 4's main path (both graphs), every path's in
-    # launches_by_path
-    join_main = join_shapes[0]
-    join = {
-        "name": "ivf_join", "route": "cuda",
-        "source": "annembed_tpu_torch/csrc/ivf_join.cu",
-        "replaces": "annembed_tpu/knn/ivf.py:159",
-        "replaces_note": "an XLA lax.map of jnp code (:159-230, "
-                         "_ivf_join_sorted); the JAX package has no Pallas "
-                         "kernel for the join; no single PyTorch call "
-                         "computes it",
-        "launches": main_joins, "max_abs_err": join_main["max_abs_err"],
-        "ms": join_main["ms"], "plain_ms": join_main["twin_ms"],
-        "bound_ms": join_main["bound_ms"], "bound_by": join_main["bound_by"],
-        "library_ms": None,
-        "launches_by_path": {"main_path": main_joins,
-                             "exact_path": exact_joins,
-                             "parts": parts_joins,
-                             "harness": harness_joins},
-        "mesh_launches_by_rank": mesh_joins,
-        "shapes": join_shapes}
-    log(json.dumps({"kernels": [top1, sweep, persistent, join]}))
+    # each join kernel's numbers at the shape of its path: the tensor-core
+    # kernel at phase 4's large-graph join (all 11M rows, bf16, k 12,
+    # nprobe 24; the twin timed once) with the main path's launches (both
+    # graphs); the SIMT kernel, which the main path no longer launches,
+    # at the quality radius's IVF rebuild (300,000 x 3, k 51) with the
+    # launches of that rebuild alone (the parts' quality_ivf run, counts
+    # read just before it and just after).  Every path's launches in
+    # launches_by_path, every shape in "shapes" with the kernel's own
+    # record there (null where it does not serve the shape)
+
+    def join_entry(name, route, shape, launches, path):
+        rec = shape["routes"][route]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"annembed_tpu_torch/csrc/{name}.cu",
+            "replaces": "annembed_tpu/knn/ivf.py:159",
+            "replaces_note": "an XLA lax.map of jnp code (:159-230, "
+                             "_ivf_join_sorted); the JAX package has no "
+                             "Pallas kernel for the join; no single PyTorch "
+                             "call computes it",
+            "launches": launches, "launches_path": path,
+            "main_path_launches": main_joins[route],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": shape["twin_ms"],
+            "bound_ms": shape["bound_ms"], "bound_by": shape["bound_by"],
+            "select_ms": shape["select_ms"], "library_ms": None,
+            "at_shape": shape["shape"],
+            "launches_by_path": {
+                "main_path": main_joins[route],
+                "exact_path": exact_joins[route],
+                "parts": {part: c[route] for part, c in parts_joins.items()},
+                "harness": harness_joins[route]},
+            "mesh_launches_by_rank": {part: [c[route] for c in ranks]
+                                      for part, ranks in mesh_joins.items()},
+            "shapes": [dict({key: v for key, v in sh.items()
+                             if key != "routes"},
+                            kernel=sh["routes"].get(route))
+                       for sh in join_shapes]}
+    join_tc = join_entry("ivf_join_tc", "tc", join_shapes[0],
+                         main_joins["tc"], "phase 4: the main path")
+    join_simt = join_entry("ivf_join", "simt", join_shapes[-1],
+                           parts_joins["quality_ivf"]["simt"],
+                           "parts: the full-fraction quality estimate's "
+                           "IVF radius rebuild, 300,000 x 3, k 51")
+    log(json.dumps({"kernels": [top1, sweep, persistent, join_tc,
+                                join_simt]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -150,3 +150,23 @@ def test_dense_route_check(counts, route, ok):
     else:
         with pytest.raises(AssertionError, match="route"):
             cs.require_route("path", counts, route)
+
+
+@pytest.mark.parametrize("joins, route, ok", [
+    ({"tc": 2, "simt": 0}, "tc", True),
+    ({"tc": 0, "simt": 0}, "tc", False),
+    ({"tc": 2, "simt": 1}, "tc", False),
+    ({"tc": 0, "simt": 3}, "simt", True),
+    ({"tc": 1, "simt": 3}, "simt", False)])
+def test_join_route_check(joins, route, ok):
+    """Each IVF path's join counts must show the kernel the rule gives
+    its shapes, and only that one."""
+    if ok:
+        cs.require_join_route("path", joins, route)
+        cs.require_route("path", dict(pair=0, persistent=1,
+                                      persistent_sweeps=9), "persistent",
+                         joins, route)
+    else:
+        with pytest.raises(AssertionError, match="route"):
+            cs.require_join_route("path", joins, route)
+

@@ -8,7 +8,7 @@ source; on rows of small integers, whose distances are exact, bit for bit
 and also to the JAX package's ``_ivf_join_sorted``; elsewhere ids equal
 outside near-ties (``ops.ivf_join.join_agreement``: the ranked value
 within TIE_REL of |q|^2 + |c|^2) and dists within 1e-5 relative.  The
-router of knn/ivf.py: which (device, layout, distance) run the kernel, a
+router of knn/ivf.py: which (device, layout, distance) run a kernel, a
 routed build through the host-built kernel, and a kernel error that
 propagates.  On the card (``-m gpu``): the kernel against its twin."""
 
@@ -24,8 +24,10 @@ from annembed_tpu_torch.knn.distances import _PAIRS
 from annembed_tpu_torch.ops import ivf_join as ij
 from tools import ivf_join_host_check as host
 
-CASE_NAMES = ("ties_float32", "ties_bfloat16", "ties_k40", "ties_k251",
-              "d28_k12_bf16", "d28_k12_f32_cut", "d9_k20_cut", "d3_k51",
+CASE_NAMES = ("ties_float32", "ties_bfloat16", "ties_k40", "ties_k24",
+              "ties_k251",
+              "d28_k12_bf16", "d28_k12_f32_cut", "d28_k32", "d9_k20_cut",
+              "d3_k51",
               "d40_chunks", "d2_grid_sentinel", "underfilled")
 
 
@@ -138,13 +140,16 @@ def test_host_kernel_matches_jax_join(host_join, one_thread, dtype):
 # --- the router --------------------------------------------------------------
 
 def test_join_route():
-    """Only the sorted layout's DistL2 join on a CUDA tensor runs the
-    kernel; every other combination runs the torch join."""
+    """Only the sorted layout's DistL2 join on a CUDA tensor runs a
+    kernel, whatever d and k; every other combination runs the torch
+    join."""
     for dev in ("cpu", "cuda"):
         for layout in ("sorted", "gathered"):
             for distance in _PAIRS:
-                assert tivf.join_on_kernel(dev, layout, distance) == (
-                    (dev, layout, distance) == ("cuda", "sorted", "DistL2"))
+                for d, k in ((2, 6), (28, 12), (3, 51), (40, 251)):
+                    assert (ij.join_route(dev, layout, distance, d, k)
+                            != "torch") == ((dev, layout, distance)
+                                            == ("cuda", "sorted", "DistL2"))
 
 
 def _routed(monkeypatch, join):
@@ -155,9 +160,10 @@ def _routed(monkeypatch, join):
     def counted(*args, **kw):
         calls.append(args[-2:])
         return join(*args, **kw)
-    monkeypatch.setattr(tivf, "join_on_kernel",
-                        lambda dev, layout, distance: distance == "DistL2"
-                        and layout == "sorted")
+    monkeypatch.setattr(tivf, "join_route",
+                        lambda dev, layout, distance, d, k: "simt"
+                        if (layout, distance) == ("sorted", "DistL2")
+                        else "torch")
     monkeypatch.setattr(tivf, "ivf_join", counted)
     return calls
 
@@ -255,14 +261,14 @@ def test_cpu_wrapper_runs_the_twin(cases):
     """On CPU tensors the wrapper is the twin and launches nothing; a
     rank's share is the twin of its rows, the others 0."""
     inp, dtype, _ = cases["d9_k20_cut"]
-    before = ij.ivf_join.launches
+    before = ij.launch_counts()
     got = ij.ivf_join(**inp, dtype=dtype)
     want = ij.ivf_join_reference(**inp, dtype=dtype)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     parts = [ij.ivf_join(**inp, dtype=dtype, rank=r, size=2) for r in (0, 1)]
     assert torch.equal(parts[0][0] + parts[1][0], got[0])
     assert torch.equal(parts[0][1] + parts[1][1], got[1])
-    assert ij.ivf_join.launches == before
+    assert ij.launch_counts() == before
     with pytest.raises(ValueError, match="rank"):
         ij.ivf_join(**inp, rank=2, size=2)
     with pytest.raises(TypeError, match="int32"):
@@ -287,11 +293,11 @@ def test_kernel_matches_twin_on_card(cuda_device, cases, name):
     inp, dtype, exact = cases[name]
     inp = {key: (v.to(cuda_device) if torch.is_tensor(v) else v)
            for key, v in inp.items()}
-    before = ij.ivf_join.launches
+    before = sum(ij.launch_counts().values())
     got = ij.ivf_join(**inp, dtype=dtype)
     again = ij.ivf_join(**inp, dtype=dtype)
     torch.cuda.synchronize()
-    assert ij.ivf_join.launches == before + 2
+    assert sum(ij.launch_counts().values()) == before + 2
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     want = ij.ivf_join_reference(**inp, dtype=dtype)
     gi, gd = host.fixed(inp, *got)

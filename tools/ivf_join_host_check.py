@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""Compile ``csrc/ivf_join.cu`` as host C++ and hold its launcher to the
-torch join on the CPU: logic, indexing, tie order and every instance of
-the kernel without a card or nvcc.
+"""Compile the IVF join kernels' C++ for the host and hold their
+launchers to the torch join on the CPU: logic, indexing, tie order and
+every instance, without a card or nvcc.
 
     python3 tools/ivf_join_host_check.py [--keep DIR]
 
-A prelude stands in for the CUDA headers (qualifiers, ``float4``, the
-bit casts, the runtime calls the launcher makes).  ``__shared__``
-arrays become function statics, which every emulated thread of a block
-shares.  A ``<<<...>>>`` launch runs one OS thread per thread of a
-block; each walks every block in turn, ``__syncthreads()`` is a
-``std::barrier`` over them, and they meet at the end of each block
-before the next reuses its shared memory.  Built with g++
-``-ffp-contract=off`` against glibc's sqrtf (correctly rounded, as the
-card's and PyTorch's).  Every case is held to the torch join
-(``_ivf_join_sorted``) after the fix-up both go through: on rows of
-small integers, whose distances are exact, bit for bit, ties included;
-on float rows by ``ops.ivf_join.join_agreement`` (ids equal outside
-near-ties, measured on the ranked value against |q|^2 + |c|^2; dists
-within 1e-5 relative).  Exits non-zero on a failed build or check.
+The SIMT kernel (``csrc/ivf_join.cu``, ``load``): a prelude stands in
+for the CUDA headers (qualifiers, ``float4``, the bit casts, the runtime
+calls the launcher makes).  ``__shared__`` arrays become function
+statics, which every emulated thread of a block shares.  A
+``<<<...>>>`` launch runs one OS thread per thread of a block; each
+walks every block in turn, ``__syncthreads()`` is a ``std::barrier``
+over them, and they meet at the end of each block before the next
+reuses its shared memory.  The tensor-core kernel (``csrc/ivf_join_tc.cu``,
+``load_tc``): its selection, merge and rerank are plain C++ in
+``csrc/ivf_join_common.cuh``, run here on fragments of a plain product
+(``TC_DRIVER``).  Built with g++ ``-ffp-contract=off`` against glibc's
+sqrtf (correctly rounded, as the card's and PyTorch's).  Every case is
+held to the torch join (``_ivf_join_sorted``) after the fix-up both go
+through: on rows of small integers, whose distances are exact, bit for
+bit, ties included; on float rows by ``ops.ivf_join.join_agreement``
+(ids equal outside near-ties, measured on the ranked value against
+|q|^2 + |c|^2; dists within 1e-5 relative).  The command runs the SIMT
+kernel's cases; exits non-zero on a failed build or check.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ sys.path.insert(0, str(ROOT))
 from annembed_tpu_torch.knn import ivf  # noqa: E402
 from annembed_tpu_torch.ops import ivf_join as ij  # noqa: E402
 
-SOURCE = ROOT / "annembed_tpu_torch" / "csrc" / "ivf_join.cu"
+CSRC = ROOT / "annembed_tpu_torch" / "csrc"
+SOURCE = CSRC / "ivf_join.cu"
+COMMON = CSRC / "ivf_join_common.cuh"
 # shared memory a block may hold on the card, the emulation's
 # dynamic shared array
 HOST_DYN_SMEM_FLOAT4 = 232448 // 16
@@ -58,6 +64,8 @@ PRELUDE = r"""
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __ffs(x) __builtin_ffs(x)
 #define __launch_bounds__(x)
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 {
@@ -119,9 +127,16 @@ void host_launch(unsigned blocks, unsigned threads, F body) {
 """
 
 
+def common_header() -> str:
+    """``csrc/ivf_join_common.cuh`` as text to inline (no ``#pragma
+    once`` in a main file)."""
+    return COMMON.read_text().replace("#pragma once\n", "")
+
+
 def host_source() -> str:
     src = SOURCE.read_text()
     src = src.replace("#include <cuda_runtime.h>\n", PRELUDE)
+    src = src.replace('#include "ivf_join_common.cuh"\n', common_header())
     src, dyn = re.subn(r"extern __shared__ float4 dyn_smem\[\];",
                        f"static float4 dyn_smem[{HOST_DYN_SMEM_FLOAT4}];",
                        src)
@@ -144,15 +159,275 @@ def build(workdir: Path) -> Path:
     return lib
 
 
-def host_join(launch, max_k):
+def host_join(launch, max_k, operand_bytes=None):
     """``ops.ivf_join.ivf_join``'s kernel branch with a host-built
-    launcher, on CPU tensors."""
-    return functools.partial(ij._join, launch, max_k, None)
+    launcher, on CPU tensors; ``max_k`` an int or ``max_k(d, bf16,
+    nprobe)``."""
+    largest = max_k if callable(max_k) else (lambda d, bf16, nprobe: max_k)
+    return functools.partial(ij._join,
+                             ij.Kernel(launch, largest, operand_bytes), None)
 
 
 def load(workdir: Path):
-    """The host-built join, as the wrapper's kernel branch calls it."""
+    """The host-built SIMT join, as the wrapper's kernel branch calls it."""
     return host_join(*ij._bind(ctypes.CDLL(str(build(workdir)))))
+
+
+# The tensor-core route's launcher on the host: the operand copy written
+# by the prologue kernel's per-element functions; every block's tiles
+# walked in turn, in each every consumer thread's accumulator fragment
+# computed from a plain product of the operand planes (exact products
+# summed in f32 in column order; for TF32 the lo.hi, hi.lo and hi.hi
+# passes in the kernel's order) in wgmma's m64n128 fragment order, columns
+# past the row's candidates NaN (the kernel's stale tile rows, never
+# read), the kernel's own filter on it, then the quad's cap as the
+# kernel's shuffles compute it; at the end the kernel's merge and rerank
+# (ivf_join_common.cuh).
+TC_DRIVER = r"""
+using namespace ivfj;
+
+extern "C" long long ivf_join_tc_operand_bytes(int n, int d, int bf16) {
+  return tc_operand_bytes(n, d, bf16);
+}
+
+extern "C" int ivf_join_tc_max_k(int d, int bf16, int nprobe) {
+  return tc_max_k(d, bf16, nprobe);
+}
+
+namespace {
+// column j of row r's operand from the copy (plane p of row r: 4 words at
+// op[(p (n + 1) + r) 4]), one TF32 set
+float operand_at(const uint32_t* op, long long n1, int nch, int bf16,
+                 long long r, int j, int set) {
+  if (bf16) {
+    const uint32_t w = op[((j / 8) * n1 + r) * 4 + (j % 8) / 2];
+    return __uint_as_float(((j % 2) ? (w >> 16) : (w & 0xffffu)) << 16);
+  }
+  return __uint_as_float(op[((set * nch + j / 4) * n1 + r) * 4 + j % 4]);
+}
+}  // namespace
+
+template <int KL>
+int host_tc(JoinArgs a, long long rows, uint32_t* op) {
+  const int n = a.n, d = a.d, k = a.k, nprobe = a.nprobe, bf16 = a.bf16;
+  const int ks = tc_ksteps(d, bf16), planes = tc_planes(d, bf16);
+  const int nch = 2 * ks, dp = bf16 ? 16 * ks : 8 * ks;
+  const long long n1 = n + 1LL;
+  for (int p = 0; p < planes; ++p) {
+    for (long long r = 0; r < n1; ++r) {
+      for (int i = 0; i < 4; ++i) {
+        op[(p * n1 + r) * 4 + i] =
+            bf16 ? (b_bf16(a, r, 8 * p + 2 * i) |
+                    (static_cast<uint32_t>(b_bf16(a, r, 8 * p + 2 * i + 1))
+                     << 16))
+                 : __float_as_uint(b_tf32(a, r, 4 * (p % nch) + i, p / nch));
+      }
+    }
+  }
+  const int ncons = tc_consumers(d, bf16, k, nprobe);
+  if (ncons == 0) return 1;
+  const int nt = 128 * ncons;
+  a.slices = (a.qcap + 64 * ncons - 1) / (64 * ncons);
+  std::vector<float> lists_v(2LL * k * nt), merged_v(64LL * ncons * k);
+  std::vector<int> lists_s(2LL * k * nt), merged_s(64LL * ncons * k);
+  std::vector<int> wstart(nprobe), wlen(nprobe), woff(nprobe + 1);
+  // per consumer thread and row: A_q [set][column], its selection
+  std::vector<float> aq(2LL * nt * 2 * dp);
+  std::vector<RowSel<KL>> rs(2LL * nt);
+  std::vector<int> qpos(2LL * nt);
+  std::vector<float> quads(2LL * nt);
+  for (long long b = 0; b < rows; ++b) {
+    const long long vrow = a.row0 + b * a.row_step;
+    const int parent = a.qparents[vrow];
+    const int qstart = a.qstarts[vrow];
+    const int qn = std::min(a.starts[parent] + a.counts[parent] - qstart,
+                            a.qcap);
+    const int* probes = a.nbrs + static_cast<long long>(parent) * nprobe;
+    int o = 0;
+    for (int p = 0; p < nprobe; ++p) {
+      wstart[p] = a.starts[probes[p]];
+      wlen[p] = std::min(a.counts[probes[p]], a.cap);
+      woff[p] = o;
+      o += wlen[p];
+    }
+    woff[nprobe] = o;
+    const Windows win{wstart.data(), wlen.data(), woff.data(), nprobe};
+    const int total = o;
+    const int ntiles = (total + TC_BN - 1) / TC_BN;
+    for (int slice = 0; slice < a.slices; ++slice) {
+      const int first = slice * 64 * ncons;
+      if (first >= qn) break;
+      const int nact = std::min(ncons, (qn - first + 63) / 64);
+      const int threads = 128 * nact;
+      // every consumer thread's rows (its place as in the kernel)
+      for (int tid = 0; tid < threads; ++tid) {
+        const int wg = tid / 128, lane = tid % 32;
+        const int rr = ((tid / 32) % 4) * 16 + lane / 4;
+        for (int h = 0; h < 2; ++h) {
+          const int qi = first + wg * 64 + rr + 8 * h;
+          const bool valid = qi < qn;
+          const int q = valid ? qstart + qi : n;
+          qpos[2 * tid + h] = q;
+          rs[2 * tid + h].init(k, valid, a.sqn[q],
+                               valid ? win.slot_of(q) : SLOT_NONE);
+          for (int j = 0; j < dp; ++j) {
+            for (int set = 0; set < 2; ++set) {
+              aq[((2 * tid + h) * 2 + set) * dp + j] =
+                  bf16 ? __uint_as_float(
+                             static_cast<uint32_t>(a_bf16(a, q, valid, j))
+                             << 16)
+                       : a_tf32(a, q, valid, j, set);
+            }
+          }
+        }
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        for (int tid = 0; tid < threads; ++tid) {
+          const int quad = tid % 4;
+          float acc[4 * (TC_BN / 8)];
+          for (int j = 0; j < TC_BN / 8; ++j) {
+            for (int h = 0; h < 2; ++h) {
+              for (int e = 0; e < 2; ++e) {
+                const int slot = t * TC_BN + 8 * j + 2 * quad + e;
+                float x = std::nanf("");
+                if (slot < total) {
+                  const long long pos = win.pos_of(slot);
+                  const float* ah = aq.data() + ((2 * tid + h) * 2) * dp;
+                  const float* al = ah + dp;
+                  x = 0.0f;
+                  if (bf16) {
+                    for (int c = 0; c < dp; ++c) {
+                      x += ah[c] * operand_at(op, n1, nch, 1, pos, c, 0);
+                    }
+                  } else {
+                    for (int c = 0; c < dp; ++c) {
+                      x += al[c] * operand_at(op, n1, nch, 0, pos, c, 0);
+                    }
+                    for (int c = 0; c < dp; ++c) {
+                      x += ah[c] * operand_at(op, n1, nch, 0, pos, c, 1);
+                    }
+                    for (int c = 0; c < dp; ++c) {
+                      x += ah[c] * operand_at(op, n1, nch, 0, pos, c, 0);
+                    }
+                  }
+                }
+                acc[4 * j + 2 * h + e] = x;
+              }
+            }
+          }
+          RowSel<KL> (&mine)[2] =
+              *reinterpret_cast<RowSel<KL>(*)[2]>(rs.data() + 2 * tid);
+          filter_tile<TC_BN / 8>(acc, mine, t * TC_BN, 2 * quad,
+                                 total - t * TC_BN, k);
+        }
+        // the quad's cap, as the kernel's two shuffles
+        for (int i = 0; i < 2 * threads; ++i) {
+          const int q0 = 2 * ((i / 2) & ~3) + i % 2;
+          float q = rs[q0].quarter;
+          for (int o = 1; o < 4; ++o) q = std::max(q, rs[q0 + 2 * o].quarter);
+          quads[i] = q;
+        }
+        for (int i = 0; i < 2 * threads; ++i) rs[i].tighten(quads[i]);
+      }
+      // the lists into shared memory and the merge, as the kernel's
+      // epilogue
+      for (int tid = 0; tid < threads; ++tid) {
+        for (int h = 0; h < 2; ++h) {
+          rs[2 * tid + h].list.store(lists_v.data() + h * nt + tid,
+                                     lists_s.data() + h * nt + tid, 2 * nt,
+                                     k);
+        }
+      }
+      for (int tid = 0; tid < threads; ++tid) {
+        const int h = tid % 4, wg = tid / 128, lane = tid % 32;
+        const int rr = ((tid / 32) % 4) * 16 + lane / 4;
+        if (h >= 2 || !rs[2 * tid + h].valid) continue;
+        const long long rb = (wg * 64 + rr + 8 * h) * static_cast<long long>(k);
+        const int q0 = tid & ~3;
+        float* base_v = lists_v.data() + h * nt + q0;
+        int* base_s = lists_s.data() + h * nt + q0;
+        float* const lv[4] = {base_v, base_v + 1, base_v + 2, base_v + 3};
+        int* const ls[4] = {base_s, base_s + 1, base_s + 2, base_s + 3};
+        const int q = qpos[2 * tid + h];
+        merge_quad(lv, ls, 2 * nt, k, win, n, merged_v.data() + rb,
+                   merged_s.data() + rb);
+        if (a.rank_v != nullptr) {
+          for (int i = 0; i < k; ++i) {
+            a.rank_v[static_cast<long long>(q) * k + i] = merged_v[rb + i];
+            a.rank_i[static_cast<long long>(q) * k + i] = merged_s[rb + i];
+          }
+        }
+        rerank_write<4>(a, q, merged_v.data() + rb, merged_s.data() + rb, 1);
+      }
+    }
+  }
+  return 0;
+}
+
+extern "C" int ivf_join_tc_launch(const void* xs, const void* sqn,
+                                  const void* qstarts, const void* qparents,
+                                  const void* starts, const void* counts,
+                                  const void* nbrs, void* out_idx,
+                                  void* out_dist, long long rows,
+                                  long long row0, long long row_step, int n,
+                                  int d, int k, int nprobe, int qcap, int cap,
+                                  int bf16, void* operands, void* rank_v,
+                                  void* rank_i, void*) {
+  if (rows <= 0) return 0;
+  if (k < 1 || k > tc_max_k(d, bf16, nprobe) || qcap < 1 || nprobe < 1) {
+    return 1;
+  }
+  JoinArgs a;
+  a.xs = static_cast<const float*>(xs);
+  a.sqn = static_cast<const float*>(sqn);
+  a.qstarts = static_cast<const int*>(qstarts);
+  a.qparents = static_cast<const int*>(qparents);
+  a.starts = static_cast<const int*>(starts);
+  a.counts = static_cast<const int*>(counts);
+  a.nbrs = static_cast<const int*>(nbrs);
+  a.out_idx = static_cast<int*>(out_idx);
+  a.out_dist = static_cast<float*>(out_dist);
+  a.row0 = row0;
+  a.row_step = row_step;
+  a.n = n;
+  a.d = d;
+  a.k = k;
+  a.nprobe = nprobe;
+  a.qcap = qcap;
+  a.cap = cap;
+  a.bf16 = bf16;
+  a.rank_v = static_cast<float*>(rank_v);
+  a.rank_i = static_cast<int*>(rank_i);
+  uint32_t* op = static_cast<uint32_t*>(operands);
+  return tc_list_slots(k) == 12 ? host_tc<12>(a, rows, op)
+                                 : host_tc<24>(a, rows, op);
+}
+"""
+
+
+def tc_host_source() -> str:
+    return PRELUDE + common_header() + TC_DRIVER
+
+
+def build_tc(workdir: Path) -> Path:
+    cpp = workdir / "ivf_join_tc_host.cpp"
+    lib = workdir / "ivf_join_tc_host.so"
+    cpp.write_text(tc_host_source())
+    subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off",
+                    "-shared", "-fPIC", "-o", str(lib), str(cpp)],
+                   check=True)
+    return lib
+
+
+def load_tc_kernel(workdir: Path) -> ij.Kernel:
+    """The host-built tensor-core library's entry points."""
+    return ij._bind_tc(ctypes.CDLL(str(build_tc(workdir))))
+
+
+def load_tc(workdir: Path):
+    """The host-built tensor-core join, as the wrapper's kernel branch
+    calls it."""
+    return host_join(*load_tc_kernel(workdir))
 
 
 def fixed(inp, idx, dist):
@@ -210,11 +485,16 @@ def cases():
         out[f"ties_{dtype}"] = (plan(ints, 7, nlist=30, nprobe=5, cap=40,
                                      qcap=24), dtype, True)
     out["ties_k40"] = (plan(ints, 40, nlist=16, nprobe=4), "float32", True)
+    out["ties_k24"] = (plan(ints, 24, nlist=30, nprobe=5, cap=60, qcap=40),
+                       "bfloat16", True)
     out["ties_k251"] = (plan(ints, 251, nlist=8, nprobe=4), "float32", True)
     higgs = clustered_rows(rng, 3000, 28)
     out["d28_k12_bf16"] = (plan(higgs, 12, nprobe=6), "bfloat16", False)
     out["d28_k12_f32_cut"] = (plan(higgs, 12, nlist=20, nprobe=4, cap=120,
                                    qcap=100), "float32", False)
+    # the SIMT kernel's 32-column tiles beside lists of k 32: past the
+    # default 48 KB of shared memory a block
+    out["d28_k32"] = (plan(higgs, 32, nlist=16, nprobe=4), "float32", False)
     out["d9_k20_cut"] = (plan(clustered_rows(rng, 2000, 9), 20, nlist=25,
                                 nprobe=5, cap=70, qcap=150), "float32", False)
     out["d3_k51"] = (plan(clustered_rows(rng, 3000, 3), 51, nprobe=8),

@@ -10,12 +10,14 @@ seed 7, z-scored; knbn 6, nprobe 24, bf16, 4 NN-descent rounds at rho
 ``sharded_build_kgraph`` on W ranks of the package's launcher (one card
 each) for each W of ``--meshes`` that the host has cards for.  Per W:
 the build's phases (quantize, join, NN-descent rounds, rerank) on rank
-0, every rank's launches of the join kernel, and every rank's graph
+0, every rank's launches of each join kernel (the tensor-core one at
+these shapes), and every rank's graph
 against the one card's (bit-equal, rows that differ, the share of equal
 ids on the columns outside near-ties).  One JSON line per W on stdout,
-then the card's name and power limit.  Needs CUDA; exits non-zero when a
-rank did not launch the kernel or its graph differs from the one card's
-outside near-ties.
+then the card's name and power limit.  Needs CUDA; builds every kernel
+source first (chip_smoke.KERNEL_SOURCES); exits non-zero when a rank did
+not launch the tensor-core kernel or its graph differs from the one
+card's outside near-ties.
 """
 
 from __future__ import annotations
@@ -39,15 +41,15 @@ MIN_AGREE = 0.999
 
 
 def _build(x, mesh=None):
-    """The graph of ``x`` at KNN, its phases (s) and the join kernel's
-    launches."""
+    """The graph of ``x`` at KNN, its phases (s) and each join kernel's
+    launches (``ops.ivf_join.launch_counts``)."""
     import annembed_tpu_torch as at
     from annembed_tpu_torch.knn.api import build_kgraph
-    from annembed_tpu_torch.ops.ivf_join import ivf_join
+    from annembed_tpu_torch.ops import ivf_join as ij
     from annembed_tpu_torch.parallel.sharded_knn import sharded_build_kgraph
     from annembed_tpu_torch.utils.profiling import PhaseTimer
     timer = PhaseTimer()
-    ivf_join.launches = 0
+    ij.reset_launch_counts()
     t0 = time.perf_counter()
     if mesh is None:
         g = build_kgraph(x, KNN["knbn"], params=at.KnnParams(**KNN),
@@ -57,7 +59,7 @@ def _build(x, mesh=None):
                                  params=at.KnnParams(**KNN), timer=timer)
     torch.cuda.synchronize()
     phases = dict(timer.timings, wall=time.perf_counter() - t0)
-    return g.indices.cpu(), g.dists.cpu(), phases, ivf_join.launches
+    return g.indices.cpu(), g.dists.cpu(), phases, ij.launch_counts()
 
 
 def _rank(mesh, rows_path):
@@ -73,7 +75,7 @@ def main() -> int:
     from annembed_tpu_torch.io.synthetic import synthetic_higgs, zscore
     from annembed_tpu_torch.ops import _build as build
     from annembed_tpu_torch.parallel.launch import run_on_ranks, save_rows
-    from chip_smoke import graph_agreement
+    from chip_smoke import KERNEL_SOURCES, graph_agreement
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=11_000_000)
     ap.add_argument("--meshes", type=int, nargs="+", default=[1, 2, 4])
@@ -82,7 +84,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 1
     disable_tf32()
-    build.build_libraries(["ivf_join", "top1_l2", "dense_sweep"])
+    build.build_libraries(KERNEL_SOURCES)
     x_np = zscore(synthetic_higgs(args.rows, seed=7))
     ok = True
     with tempfile.TemporaryDirectory(prefix="join_mesh_") as tmp:
@@ -94,7 +96,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(json.dumps(dict(w=0, rows=args.rows, phases=phases,
                               joins=[joins])), flush=True)
-        ok &= joins >= 1
+        ok &= joins["tc"] >= 1
         for w in args.meshes:
             if w > torch.cuda.device_count():
                 continue
@@ -108,7 +110,7 @@ def main() -> int:
                 checks.append(dict(bit_equal=bits, rows_differing=rows,
                                    clear_columns_equal=agree,
                                    max_rel_dist_err=d_rel))
-                ok &= agree >= MIN_AGREE and r["joins"] >= 1
+                ok &= agree >= MIN_AGREE and r["joins"]["tc"] >= 1
             print(json.dumps(dict(w=w, rows=args.rows,
                                   phases=ranks[0]["phases"],
                                   joins=[r["joins"] for r in ranks],

@@ -16,8 +16,9 @@ sharded sweep issues it (mean of 50 after 5 warm-ups, CUDA events), and
 each rank's launches of the top-1 kernel and of the dense sweep kernel
 pair; it checks that every rank holds the same embedding and counts the
 rows of the large graph that differ from the first mesh size's.
-One JSON line per W on stdout, then the card's name and power limit.
-Needs CUDA.
+Every kernel source is built (``_build.build_libraries``) before the
+first W, so no W's time holds nvcc.  One JSON line per W on stdout, then
+the card's name and power limit.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -129,8 +130,13 @@ def main(argv=None) -> int:
         print("torch_scaling_sharded: no CUDA device", file=sys.stderr)
         return 1
     from annembed_tpu_torch.io.synthetic import synthetic_higgs, zscore
+    from annembed_tpu_torch.ops import _build
     from annembed_tpu_torch.parallel.launch import run_on_ranks, save_rows
+    from chip_smoke import KERNEL_SOURCES
     meshes = [w for w in args.meshes if w <= torch.cuda.device_count()]
+    # every kernel built before the first W is timed (its ranks load the
+    # libraries; nvcc is not in W = 1's first step)
+    _build.build_libraries(KERNEL_SOURCES)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
