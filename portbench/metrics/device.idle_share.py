@@ -1,0 +1,9 @@
+"""Share of the traced embed in which no operation ran on the card:
+1 - the union of the device's activity intervals over the traced
+window, in %."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
