@@ -19,6 +19,7 @@ returns rank 0's result; it never falls back to fewer cards.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -39,6 +40,7 @@ from .knn.hierarchy import build_projection
 from .optim.embedder import Embedder, check_embedder_params
 from .params import DiffusionParams, EmbedderParams, KnnParams
 from .spectral.diffmaps import DiffusionMaps
+from .utils.profiling import record_call, span
 
 logger = logging.getLogger(__name__)
 
@@ -133,6 +135,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _recorded(fn):
+    """``fn`` run as one recorded call (utils/profiling.py): the root span
+    ``fn.__name__`` covers it from entry to return, and the ``info`` it
+    returns gets the call's ``spans`` and ``counters`` (where spawned
+    ranks ran it, rank 0's own)."""
+    @functools.wraps(fn)
+    def recorded(*args, **kwargs):
+        with record_call(fn.__name__) as call:
+            y, info = fn(*args, **kwargs)
+        info.setdefault("spans", call.spans)
+        info.setdefault("counters", call.counters)
+        return y, info
+    return recorded
+
+
+@_recorded
 def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
           batch: int = 20, nbsample: int = 10, layer: int = 0,
           hierarchy_fraction: float = 0.05, scale: float = 1.0,
@@ -176,22 +194,31 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
 
     ``n_devices`` > 1 or a ``mesh`` run the multi-device path (see the
     module docstring); ``info["n_devices"]`` then counts the ranks of
-    the dense optimizer."""
-    if cluster == 1:
-        raise ValueError("cluster is HDBSCAN*'s min_cluster_size: >= 2")
-    _check_mesh(mesh)
-    if params is None:
-        params = EmbedderParams()
-    # the CLI-surface kwargs always win; the caller's object is copied
-    params = dataclasses.replace(
-        params, asked_dim=dim, nb_grad_batch=batch,
-        nb_sampling_by_edge=nbsample, scale_rho=scale,
-        hierarchy_layer=layer, seed=seed)
-    if knn_params is None:
-        knn_params = KnnParams(knbn=nbng, distance=distance)
-    check_embedder_params(params)
-    _check_graph_options(distance, knn_params)
-    x_host = _load(csv, delim, quality_sampling, knn_params)
+    the dense optimizer.
+
+    ``info["spans"]`` lists the call's spans as ``[name, parent_index,
+    start_ns, end_ns]`` on ``time.time_ns()``, the root ``embed`` first
+    (parent -1); every timing above is the duration of one of them.
+    ``info["counters"]`` holds the increments of the process's counters
+    over the call: the kernels' launches, the IVF plans' candidate
+    pairs (utils/profiling.py)."""
+    with span("check_args"):
+        if cluster == 1:
+            raise ValueError("cluster is HDBSCAN*'s min_cluster_size: >= 2")
+        _check_mesh(mesh)
+        if params is None:
+            params = EmbedderParams()
+        # the CLI-surface kwargs always win; the caller's object is copied
+        params = dataclasses.replace(
+            params, asked_dim=dim, nb_grad_batch=batch,
+            nb_sampling_by_edge=nbsample, scale_rho=scale,
+            hierarchy_layer=layer, seed=seed)
+        if knn_params is None:
+            knn_params = KnnParams(knbn=nbng, distance=distance)
+        check_embedder_params(params)
+        _check_graph_options(distance, knn_params)
+    with span("read_rows"):
+        x_host = _load(csv, delim, quality_sampling, knn_params)
     if mesh is None and n_devices > 1:
         return _on_ranks(embed, x_host, n_devices, device, dict(
             outfile=outfile, dim=dim, batch=batch, nbsample=nbsample,
@@ -208,89 +235,95 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
     writer = mesh is None or mesh.rank == 0
     if not writer:
         outfile = None
-    x = _to_device(x_host, dev)
+    with span("copy_in") as wait:
+        x = _to_device(x_host, dev)
+        wait.append(x)
     del x_host
 
-    t0 = time.perf_counter()
     extra = {}
     saves = {}        # the checkpoints' load and save seconds
     graph_loaded = bool(graph_cache) and ckpt.checkpoint_exists(graph_cache)
-    if graph_loaded:
-        load = ckpt.load_projection if layer > 0 else ckpt.load_kgraph
-        graph = load(graph_cache, expect_n=x.shape[0], device=dev)
-        logger.info("loaded %s checkpoint from %s",
-                    "projection" if layer > 0 else "kNN graph", graph_cache)
-    elif layer > 0:
-        graph = build_projection(x, nbng, sample_fraction=hierarchy_fraction,
-                                 distance=distance, params=knn_params,
-                                 seed=seed, mesh=mesh)
-        extra["graph_build_phases"] = dict(graph.timings)
-    elif mesh is not None:
-        from .parallel.sharded_knn import sharded_build_kgraph
-        graph = sharded_build_kgraph(x, nbng, mesh, distance=distance,
-                                     params=knn_params)
-    else:
-        graph = build_kgraph(x, nbng, distance=distance, params=knn_params)
-    _sync(dev)
-    if graph_loaded:
-        saves["graph_load_s"] = time.perf_counter() - t0
 
     def save_graph():
         if not writer:
             return
-        t = time.perf_counter()
-        (ckpt.save_projection if layer > 0 else ckpt.save_kgraph)(
-            graph_cache, graph)
-        saves["graph_save_s"] = time.perf_counter() - t
+        with span("graph_save") as sp:
+            (ckpt.save_projection if layer > 0 else ckpt.save_kgraph)(
+                graph_cache, graph)
+        saves["graph_save_s"] = sp.seconds
 
-    if graph_cache and graph_cache_eager and not graph_loaded:
-        save_graph()
-    graph_build_time = time.perf_counter() - t0
-    if layer > 0:
-        extra["projection_distance_quantiles"] = \
-            graph.projection_distance_quantiles()
-        emb = Embedder.from_hkgraph(graph, params, mesh=mesh)
-    else:
-        emb = Embedder.new(graph, params, mesh=mesh)
-    y_host = None
-    if embed_cache and ckpt.checkpoint_exists(embed_cache):
-        # resume straight into the quality tail
-        t = time.perf_counter()
-        y_host = ckpt.load_embedding(embed_cache)
-        if y_host.shape != (x.shape[0], dim):
-            raise ValueError(
-                f"embed_cache {embed_cache!r} has shape {y_host.shape}, "
-                f"expected {(x.shape[0], dim)} — stale checkpoint from "
-                "another run? delete it or fix the path")
-        emb.embedding = y_dev = torch.from_numpy(y_host).to(dev)
-        saves["embedding_load_s"] = time.perf_counter() - t
-        logger.info("loaded embedding checkpoint from %s", embed_cache)
-    else:
-        y_dev = emb.embed()
-        if embed_cache and writer:
-            t = time.perf_counter()
-            y_host = y_dev.cpu().numpy()
-            ckpt.save_embedding(embed_cache, y_host)
-            saves["embedding_save_s"] = time.perf_counter() - t
-    q = None
-    if with_quality:
-        q = emb.get_quality_estimate_from_edge_length(
-            nbng=quality_nbng, sample_fraction=quality_fraction,
-            knn_params=knn_params,
-            radius_k_compat=quality_radius_compat or None)
-    y = y_dev.cpu().numpy() if y_host is None else y_host
-    info = _finalize_info(emb.info)
+    with span("pipeline") as pipeline:
+        with span("graph") as graph_span:
+            if graph_loaded:
+                with span("graph_load") as sp:
+                    load = ckpt.load_projection if layer > 0 \
+                        else ckpt.load_kgraph
+                    graph = load(graph_cache, expect_n=x.shape[0],
+                                 device=dev)
+                    _sync(dev)
+                saves["graph_load_s"] = sp.seconds
+                logger.info("loaded %s checkpoint from %s",
+                            "projection" if layer > 0 else "kNN graph",
+                            graph_cache)
+            else:
+                with span("graph_build"):
+                    graph = _build_graph(x, nbng, layer, hierarchy_fraction,
+                                         distance, knn_params, seed, mesh)
+                    _sync(dev)
+                if layer > 0:
+                    extra["graph_build_phases"] = dict(graph.timings)
+                if graph_cache and graph_cache_eager:
+                    save_graph()
+        if layer > 0:
+            with span("projection_quantiles"):
+                extra["projection_distance_quantiles"] = \
+                    graph.projection_distance_quantiles()
+            emb = Embedder.from_hkgraph(graph, params, mesh=mesh)
+        else:
+            emb = Embedder.new(graph, params, mesh=mesh)
+        y_host = None
+        if embed_cache and ckpt.checkpoint_exists(embed_cache):
+            # resume straight into the quality tail
+            with span("embedding_load") as sp:
+                y_host = ckpt.load_embedding(embed_cache)
+                if y_host.shape != (x.shape[0], dim):
+                    raise ValueError(
+                        f"embed_cache {embed_cache!r} has shape "
+                        f"{y_host.shape}, expected {(x.shape[0], dim)} — "
+                        "stale checkpoint from another run? delete it or "
+                        "fix the path")
+                emb.embedding = y_dev = torch.from_numpy(y_host).to(dev)
+            saves["embedding_load_s"] = sp.seconds
+            logger.info("loaded embedding checkpoint from %s", embed_cache)
+        else:
+            y_dev = emb.embed()
+            if embed_cache and writer:
+                with span("embedding_save") as sp:
+                    y_host = _readback(y_dev)
+                    ckpt.save_embedding(embed_cache, y_host)
+                saves["embedding_save_s"] = sp.seconds
+        q = None
+        if with_quality:
+            with span("quality"):
+                q = emb.get_quality_estimate_from_edge_length(
+                    nbng=quality_nbng, sample_fraction=quality_fraction,
+                    knn_params=knn_params,
+                    radius_k_compat=quality_radius_compat or None)
+        y = _readback(y_dev) if y_host is None else y_host
+        info = _finalize_info(emb.info)
     info.update(extra)
-    info["graph_build_time"] = graph_build_time
-    info["total_time"] = time.perf_counter() - t0
+    info["graph_build_time"] = graph_span.seconds
+    info["total_time"] = pipeline.seconds
     if graph_cache and not ckpt.checkpoint_exists(graph_cache):
         save_graph()
     if saves:
         info["checkpoints"] = saves
     if return_graph:
         info["kgraph"] = emb.get_kgraph()
+    res = None
     if cluster > 0:
-        res = hdbscan(emb.get_kgraph(), min_cluster_size=cluster)
+        with span("cluster"):
+            res = hdbscan(emb.get_kgraph(), min_cluster_size=cluster)
         info["cluster"] = {
             "n_clusters": len(res.selected),
             "noise_fraction": float((res.labels == -1).mean()),
@@ -298,25 +331,51 @@ def embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,
             "probabilities": res.probabilities,
             "timings": res.timings,
         }
-        if outfile:
-            d = os.path.dirname(os.fspath(outfile)) or "."
-            write_csv_labeled_array2(os.path.join(d, "clusters.csv"),
-                                     res.labels, y)
+    if outfile:
+        with span("write"):
+            _write_outputs(outfile, y, q, res)
     if q is not None:
         info["quality"] = q.summary()
-        if outfile:
-            # per-node dumps next to the embedding (reference
-            # embedder.rs:729-743); under quality sampling the stat rows
-            # follow q.sample_ids, paired with the same embedding rows
-            d = os.path.dirname(os.fspath(outfile)) or "."
-            y_rows = y if q.sample_ids is None else y[q.sample_ids]
-            write_csv_labeled_array2(os.path.join(d, "first_dist.csv"),
-                                     q.first_dist.cpu().numpy(), y_rows)
-            write_csv_labeled_array2(os.path.join(d, "continuity_ratio.csv"),
-                                     q.ratio_by_node.cpu().numpy(), y_rows)
-    if outfile:
-        write_csv_array2(outfile, y)
     return y, info
+
+
+def _build_graph(x, nbng: int, layer: int, hierarchy_fraction: float,
+                 distance: str, knn_params: KnnParams, seed: int, mesh):
+    """The kNN graph, or at ``layer`` > 0 the projection, of ``x``."""
+    if layer > 0:
+        return build_projection(x, nbng, sample_fraction=hierarchy_fraction,
+                                distance=distance, params=knn_params,
+                                seed=seed, mesh=mesh)
+    if mesh is not None:
+        from .parallel.sharded_knn import sharded_build_kgraph
+        return sharded_build_kgraph(x, nbng, mesh, distance=distance,
+                                    params=knn_params)
+    return build_kgraph(x, nbng, distance=distance, params=knn_params)
+
+
+def _readback(y_dev: torch.Tensor) -> np.ndarray:
+    """The embedding on the host."""
+    with span("readback"):
+        return y_dev.cpu().numpy()
+
+
+def _write_outputs(outfile, y: np.ndarray, q, res) -> None:
+    """The embedding to ``outfile``; next to it ``clusters.csv`` (label,
+    coordinates) with HDBSCAN*'s result ``res`` and, with the quality
+    estimate ``q``, its per-node dumps (reference embedder.rs:729-743;
+    under quality sampling the stat rows follow q.sample_ids, paired
+    with the same embedding rows)."""
+    d = os.path.dirname(os.fspath(outfile)) or "."
+    if res is not None:
+        write_csv_labeled_array2(os.path.join(d, "clusters.csv"),
+                                 res.labels, y)
+    if q is not None:
+        y_rows = y if q.sample_ids is None else y[q.sample_ids]
+        write_csv_labeled_array2(os.path.join(d, "first_dist.csv"),
+                                 q.first_dist.cpu().numpy(), y_rows)
+        write_csv_labeled_array2(os.path.join(d, "continuity_ratio.csv"),
+                                 q.ratio_by_node.cpu().numpy(), y_rows)
+    write_csv_array2(outfile, y)
 
 
 def dmap_embed(csv: ArrayLike, outfile: Optional[str] = None, dim: int = 2,

@@ -105,9 +105,11 @@ def main_embed(argv=None) -> int:
                     quality_fraction=args.quality_fraction,
                     cluster=args.cluster, n_devices=args.n_devices,
                     device=args.device)
+    # the JAX CLI's keys: the call's spans and counters stay in ``info``
     out = {"n": int(y.shape[0]), "dim": int(y.shape[1]),
            **{k: v for k, v in info.items()
-              if isinstance(v, (int, float, dict))}}
+              if isinstance(v, (int, float, dict))
+              and k not in ("spans", "counters")}}
     if "cluster" in out:        # keep only json-safe scalars
         out["cluster"] = {k: v for k, v in out["cluster"].items()
                           if isinstance(v, (int, float))}

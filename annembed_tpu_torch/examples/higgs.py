@@ -51,11 +51,11 @@ from annembed_tpu_torch.io.synthetic import (synthetic_clustered_manifold,
 from annembed_tpu_torch.knn.api import sampled_exact_recall
 from annembed_tpu_torch.ops.dense_sweep import launch_counts
 from annembed_tpu_torch.ops import ivf_join as ij
-from annembed_tpu_torch.ops.top1 import top1_l2
+from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
 
 #: ``info`` fields the JAX harness's record does not carry
 PORT_ONLY = ("graph_build_phases", "projection_distance_quantiles",
-             "checkpoints")
+             "checkpoints", "spans", "counters")
 
 
 def parse_schedule(spec, batch=None, n_sub=None):
@@ -245,7 +245,7 @@ def main(argv=None) -> int:
                                       sample=args.recall_sample)
 
     port = {k: info.pop(k) for k in PORT_ONLY if k in info}
-    port["top1_l2_launches"] = top1_l2.launches
+    port["top1_l2_launches"] = top1_launch_count()
     port["ivf_join_counts"] = ij.launch_counts()
     counts = launch_counts()
     port["dense_sweep_launches"] = counts["pair"] + counts["persistent"]

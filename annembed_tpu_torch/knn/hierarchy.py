@@ -19,7 +19,7 @@ import torch
 from ..graph.kgraph import KGraph
 from ..ops.top1 import top1_l2
 from ..params import KnnParams
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, span
 from ..utils.stats import quantiles
 from .api import build_kgraph
 from .brute import knn_search_brute
@@ -60,7 +60,8 @@ class KGraphProjection:
 
 def draw_sample_ids(n: int, m: int, generator: torch.Generator) -> torch.Tensor:
     """m distinct sorted row ids out of n, from ``generator``."""
-    return torch.sort(torch.randperm(n, generator=generator)[:m]).values
+    with span("rng.sample_ids"):
+        return torch.sort(torch.randperm(n, generator=generator)[:m]).values
 
 
 def _nearest(q: torch.Tensor, xs: torch.Tensor, distance: str):

@@ -39,13 +39,16 @@ import numpy as np
 import torch
 
 from ..ops.ivf_join import ivf_join, join_route
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, count, span
 from .brute import _topk_lowest_index, check_knobs
 from .distances import (PANEL_BYTES, USES_SQNORM, check_distance,
                         corpus_sqnorm, get_panel_fn, l2_pair, l2_panel)
 from .kmeans import assign_to_centroids, kmeans_fit
 
 logger = logging.getLogger(__name__)
+
+#: the registry counter of the candidate distances the IVF plans call for
+PAIRS = "knn.ivf.pairs"
 
 
 def ivf_sizing(n: int, k: int, nlist: int = 0):
@@ -428,14 +431,18 @@ def _quantize_cells(xq: torch.Tensor, k: int, nlist: int, nprobe: int,
     if n > sample_size:
         if sample_ids is None:
             gen = torch.Generator().manual_seed(seed + 1)
-            sample_ids = torch.randperm(n, generator=gen)[:sample_size]
+            with span("rng.kmeans_sample"):
+                sample_ids = torch.randperm(n, generator=gen)[:sample_size]
         sub = xq[sample_ids.to(xq.device)]
-    centroids, _ = kmeans_fit(sub, nlist, n_iter=kmeans_iter, seed=seed,
-                              init_ids=init_ids)
-    cells = assign_to_centroids(xq, centroids)
-    # nearest cells per cell (self included first, exact centroid panel)
-    cd = l2_panel(centroids, centroids, corpus_sqnorm(centroids))
-    _, cell_nbrs = _topk_lowest_index(cd, nprobe)
+    with span("kmeans_fit"):
+        centroids, _ = kmeans_fit(sub, nlist, n_iter=kmeans_iter, seed=seed,
+                                  init_ids=init_ids)
+    with span("kmeans_assign"):
+        cells = assign_to_centroids(xq, centroids)
+        # nearest cells per cell (self included first, exact centroid
+        # panel)
+        cd = l2_panel(centroids, centroids, corpus_sqnorm(centroids))
+        _, cell_nbrs = _topk_lowest_index(cd, nprobe)
     return cells, cell_nbrs.to(torch.int32), nlist, cap, qcap, False
 
 
@@ -450,7 +457,9 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
                   timer: Optional[PhaseTimer] = None, mesh=None):
     """Approximate kNN graph via the IVF local join.  Returns (idx (n, k)
     int32, dist (n, k) f32), ascending.  ``timer`` receives the wall
-    seconds of the phases ``ivf_quantize`` and ``ivf_join``.
+    seconds of the phases ``ivf_quantize`` and ``ivf_join``; the
+    counter ``knn.ivf.pairs`` the plan's candidate distances
+    (``plan_pairs``).
 
     All five metrics are served: the in-join distances use the metric's
     own panel; the coarse quantizer always partitions in L2 (on
@@ -501,8 +510,24 @@ def knn_graph_ivf(x: torch.Tensor, k: int, distance: str = "DistL2",
             idx, dist = _knn_graph_ivf_gathered(
                 x, cells, cell_nbrs, pad_cell, k, nlist, cap, qcap, dtype,
                 distance, panel_bytes, mesh)
+        pairs = plan_pairs(cells, cell_nbrs, nlist, cap)
         sync.append(dist)
+    # read after the span's sync: no stall of its own
+    count(PAIRS, pairs.item())
     return idx, dist
+
+
+def plan_pairs(cells: torch.Tensor, cell_nbrs: torch.Tensor, nlist: int,
+               cap: int) -> torch.Tensor:
+    """The candidate distances the join's plan calls for: every row of a
+    cell c against the first min(counts[p], cap) rows of each cell p it
+    probes, sum_c counts[c] sum_{p in cell_nbrs[c]} min(counts[p], cap)
+    (the sentinel probe id ``nlist`` an empty cell); a 0-d int64 tensor
+    on the cells' device.  The same count whatever route serves the
+    join."""
+    counts = torch.bincount(cells.to(torch.int64), minlength=nlist + 1)
+    probed = counts[cell_nbrs.to(torch.int64)].clamp_max(cap).sum(1)
+    return (counts[:nlist] * probed).sum()
 
 
 def _knn_graph_ivf_gathered(x, cells, cell_nbrs, pad_cell: bool, k: int,

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import span
 from .distances import corpus_sqnorm, l2_panel, panel_rows
 
 #: most rows of one assignment panel (the panel itself stays within
@@ -56,7 +57,8 @@ def kmeans_fit(x: torch.Tensor, n_clusters: int, n_iter: int = 10,
     n, d = x.shape
     if init_ids is None:
         gen = torch.Generator().manual_seed(seed)
-        init_ids = torch.randperm(n, generator=gen)[:n_clusters]
+        with span("rng.kmeans_init"):
+            init_ids = torch.randperm(n, generator=gen)[:n_clusters]
     centroids = x[init_ids.to(x.device)]
     for _ in range(n_iter):
         cells = assign_to_centroids(x, centroids).to(torch.int64)

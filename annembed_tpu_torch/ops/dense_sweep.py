@@ -29,7 +29,11 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import count, counters, reset_counters
 from ._build import load_library
+
+#: the prefix of the sweep kernels' launch counters in the registry
+PREFIX = "ops.dense_sweep."
 
 _F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
 #: the fields of an edge record, kg words each
@@ -286,8 +290,8 @@ def dense_attraction_rows(y, y_src, lo: int, edges, scale, gamma: float,
     mask (or None) (kg, rows) float32; scale (n,).  Returns a new
     (rows, d) tensor.
 
-    CUDA tensors launch the kernel (each launch adds one to
-    ``dense_attraction_rows.launches``); CPU tensors run
+    CUDA tensors launch the kernel (each launch adds one to the
+    counter ``ops.dense_sweep.attraction``); CPU tensors run
     ``dense_attraction_rows_reference``."""
     if y.device.type != "cuda":
         return dense_attraction_rows_reference(
@@ -305,11 +309,8 @@ def dense_attraction_rows(y, y_src, lo: int, edges, scale, gamma: float,
                                     f_min, mask, mask_p, out),
                   _stream(y.device))
     _raise_on(err, "attraction")
-    dense_attraction_rows.launches += 1
+    count(PREFIX + "attraction")
     return out
-
-
-dense_attraction_rows.launches = 0
 
 
 def dense_kick_rows_reference(y, a, lo: int, offset: int, idx_full, scale,
@@ -361,8 +362,8 @@ def dense_kick_rows(y, a, lo: int, offset: int, idx_full, scale,
     int32; ``neg_weight`` (n,) or None weighs the partners.  ``out``
     (rows, d) may be y's own rows [lo, lo + rows), never ``a``.
 
-    CUDA tensors launch the kernel (each launch adds one to
-    ``dense_kick_rows.launches``); CPU tensors run
+    CUDA tensors launch the kernel (each launch adds one to the
+    counter ``ops.dense_sweep.kick``); CPU tensors run
     ``dense_kick_rows_reference``."""
     if y.device.type != "cuda":
         return dense_kick_rows_reference(
@@ -381,11 +382,8 @@ def dense_kick_rows(y, a, lo: int, offset: int, idx_full, scale,
                                n_neg, neg_weight, neighbor_exclusion,
                                parallel_kicks, flat, out), _stream(y.device))
     _raise_on(err, "kick")
-    dense_kick_rows.launches += 1
+    count(PREFIX + "kick")
     return out
-
-
-dense_kick_rows.launches = 0
 
 
 def dense_sweeps_reference(y, y_src, edges, scale, gammas, offsets, groups,
@@ -426,7 +424,8 @@ def dense_sweeps(y, y_src, edges, scale, gammas, offsets, groups, b: float,
     device.  Returns ``y``.
 
     CUDA tensors run every sweep in one cooperative launch (adding one to
-    ``dense_sweeps.launches`` and the sweeps to ``dense_sweeps.sweeps``);
+    the counter ``ops.dense_sweep.persistent`` and the sweeps to
+    ``ops.dense_sweep.persistent_sweeps``);
     a launch the card refuses raises.  CPU tensors run
     ``dense_sweeps_reference``."""
     if y.device.type != "cuda":
@@ -449,27 +448,20 @@ def dense_sweeps(y, y_src, edges, scale, gammas, offsets, groups, b: float,
                                    f_min, neg_weight, neighbor_exclusion,
                                    parallel_kicks), _stream(y.device))
     _raise_on(err, "persistent sweep")
-    dense_sweeps.launches += 1
-    dense_sweeps.sweeps += steps
+    count(PREFIX + "persistent")
+    count(PREFIX + "persistent_sweeps", steps)
     return y
-
-
-dense_sweeps.launches = 0
-dense_sweeps.sweeps = 0
 
 
 def launch_counts() -> dict:
     """The sweep kernels' launches since the last reset: ``pair`` (both
     halves of every per-sweep pair), ``persistent`` launches and the
     ``persistent_sweeps`` they ran."""
-    return dict(pair=(dense_attraction_rows.launches
-                      + dense_kick_rows.launches),
-                persistent=dense_sweeps.launches,
-                persistent_sweeps=dense_sweeps.sweeps)
+    c = counters(PREFIX)
+    return dict(pair=c.get("attraction", 0) + c.get("kick", 0),
+                persistent=c.get("persistent", 0),
+                persistent_sweeps=c.get("persistent_sweeps", 0))
 
 
 def reset_launch_counts() -> None:
-    dense_attraction_rows.launches = 0
-    dense_kick_rows.launches = 0
-    dense_sweeps.launches = 0
-    dense_sweeps.sweeps = 0
+    reset_counters(PREFIX)

@@ -33,8 +33,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import count, counters, reset_counters
 from ._build import load_library
 from .dense_sweep import _need
+
+#: the prefix of the join kernels' launch counters in the registry
+PREFIX = "ops.ivf_join."
 
 _F32, _I32 = torch.float32, torch.int32
 #: two joins agree when their ids differ only where the ranked values
@@ -242,22 +246,19 @@ def ivf_join(xs_pad, sqnorm, qstarts, qparents, starts, counts, cell_nbrs,
                     torch.cuda.current_stream(xs_pad.device).cuda_stream,
                     xs_pad, sqnorm, qstarts, qparents, starts, counts,
                     cell_nbrs, k, qcap, cap, dtype, rank, size)
-    _LAUNCHES[route] += 1
+    count(PREFIX + route)
     return out
-
-
-_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def launch_counts() -> dict:
     """Launches of each join kernel since the last reset: ``simt`` and
-    ``tc``."""
-    return dict(_LAUNCHES)
+    ``tc`` (the registry counters ``ops.ivf_join.<route>``)."""
+    c = counters(PREFIX)
+    return {route: c.get(route, 0) for route in ROUTES}
 
 
 def reset_launch_counts() -> None:
-    for route in ROUTES:
-        _LAUNCHES[route] = 0
+    reset_counters(PREFIX)
 
 
 def ranked_value(xs_pad, qpos, cpos, dtype: str):

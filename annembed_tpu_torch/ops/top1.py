@@ -15,7 +15,11 @@ import ctypes
 import torch
 
 from ..knn.distances import corpus_sqnorm, l2_expansion, panel_rows
+from ..utils.profiling import count, counters, reset_counters
 from ._build import load_library
+
+#: the registry counter of the kernel's launches
+LAUNCHES = "ops.top1_l2.launches"
 
 
 def _check(queries: torch.Tensor, corpus: torch.Tensor) -> None:
@@ -77,7 +81,7 @@ def top1_l2(queries: torch.Tensor, corpus: torch.Tensor):
     CUDA tensors launch the CUDA kernel (3xTF32 on the tensor cores; a
     failed build or launch raises); CPU tensors run
     ``top1_l2_reference``.  Each kernel launch adds one to
-    ``top1_l2.launches``."""
+    ``launch_count()``."""
     _check(queries, corpus)
     if queries.device.type == "cpu":
         return top1_l2_reference(queries, corpus)
@@ -100,8 +104,14 @@ def top1_l2(queries: torch.Tensor, corpus: torch.Tensor):
                      stream)
     if err != 0:
         raise RuntimeError(f"top1_l2 kernel launch failed: CUDA error {err}")
-    top1_l2.launches += 1
+    count(LAUNCHES)
     return idx, dist
 
 
-top1_l2.launches = 0
+def launch_count() -> int:
+    """The kernel's launches since the last reset."""
+    return counters().get(LAUNCHES, 0)
+
+
+def reset_launch_count() -> None:
+    reset_counters(LAUNCHES)

@@ -54,6 +54,7 @@ from ..graph.proba import NodeParams
 from ..params import PROBA_MIN, EmbedderParams
 from ..ops.dense_sweep import (dense_attraction_rows, dense_kick_rows,
                                 dense_sweeps, pack_groups)
+from ..utils.profiling import span
 from .ce import NB_NEGATIVE, _common_coeff, embedded_scales_from_initial
 
 
@@ -580,7 +581,8 @@ def prepare_dense_inputs(y0, g: KGraph, npar: NodeParams,
     n, k = g.indices.shape
     dev = g.indices.device
     if relabel is None:
-        relabel = torch.randperm(n, generator=generator)
+        with span("rng.relabel"):
+            relabel = torch.randperm(n, generator=generator)
     relabel = torch.tensor(np.asarray(relabel), dtype=torch.int64, device=dev)
     inv = torch.argsort(relabel)
     indices_r = inv[g.indices.to(torch.int64)[relabel]].to(torch.int32)
@@ -646,10 +648,11 @@ def run_dense_optimization(y0, g: KGraph, npar: NodeParams,
                     f"n_blocks={n_groups}*{n_blocks} for equal edge "
                     f"coverage")
     gather_reuse = max(int(params.dense_gather_reuse), 1)
-    (y_r, indices_r, w, m_visit, w_rev, m_rev_visit, emb_scale, neg_weight,
-     n_neg, inv) = prepare_dense_inputs(y0, g, npar, params, schedule[0][1],
-                                        n_groups, neg_weights,
-                                        relabel=relabel, generator=generator)
+    with span("relabel"):
+        (y_r, indices_r, w, m_visit, w_rev, m_rev_visit, emb_scale,
+         neg_weight, n_neg, inv) = prepare_dense_inputs(
+            y0, g, npar, params, schedule[0][1], n_groups, neg_weights,
+            relabel=relabel, generator=generator)
     nb_total = int(params.nb_grad_batch)
     batch_cursor, sweeps = 0, 0
     for nb_p, s_p in schedule:

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Optional
 
 import torch
@@ -37,7 +36,7 @@ from ..graph.proba import NodeParams, to_proba_edges
 from ..knn.hierarchy import KGraphProjection
 from ..params import DiffusionParams, EmbedderParams
 from ..spectral.diffmaps import DiffusionMaps
-from ..utils.profiling import PhaseTimer, device_trace
+from ..utils.profiling import PhaseTimer, device_trace, span
 from .ce import build_edge_set, ce_value_dense, run_entropy_optimization
 from .dense import run_dense_optimization
 
@@ -132,8 +131,9 @@ class Embedder:
     def _random_initial(self, n: int, dim: int, size: float,
                         device) -> torch.Tensor:
         gen = torch.Generator().manual_seed(self.params.seed + 17)
-        y = (torch.rand((n, dim), generator=gen) - 0.5) * size
-        return y.to(device)
+        with span("rng.random_init"):
+            u = torch.rand((n, dim), generator=gen)
+        return ((u - 0.5) * size).to(device)
 
     def one_step_embed(self, g: Optional[KGraph] = None) -> torch.Tensor:
         g = g if g is not None else self.kgraph
@@ -171,21 +171,29 @@ class Embedder:
         y_small = first.one_step_embed()
         self.info["first_step"] = first.info
 
-        # step 2: seed the full embedding from the projection
+        # step 2: seed the full embedding from the projection; the seed
+        # waits for its device work, so that the edge probabilities'
+        # span holds theirs alone
         large = proj.large_graph
         n = large.nb_nodes
         dim = p.asked_dim
-        ratio = proj.proj_dist / median(proj.proj_dist).clamp_min(1e-30)
-        correction = torch.sqrt(ratio / dim)
-        gen = torch.Generator().manual_seed(p.seed + 23)
-        noise = torch.randn((n, dim), generator=gen).to(y_small.device)
-        jitter = torch.clamp(correction[:, None] * noise, -2.0, 2.0)
-        init = y_small[proj.proj_small_idx] + jitter
-        # sampled points keep their exact small-graph coordinates
-        init[proj.sample_ids] = y_small
+        with span("seed") as wait:
+            ratio = proj.proj_dist / median(proj.proj_dist).clamp_min(1e-30)
+            correction = torch.sqrt(ratio / dim)
+            gen = torch.Generator().manual_seed(p.seed + 23)
+            with span("rng.seed_noise"):
+                noise = torch.randn((n, dim), generator=gen)
+            noise = noise.to(y_small.device)
+            jitter = torch.clamp(correction[:, None] * noise, -2.0, 2.0)
+            init = y_small[proj.proj_small_idx] + jitter
+            # sampled points keep their exact small-graph coordinates
+            init[proj.sample_ids] = y_small
+            wait.append(init)
         self.initial_embedding = init
 
-        self.initial_space = to_proba_edges(large, p.scale_rho, p.beta)
+        with self.timer.phase("proba_edges") as wait:
+            self.initial_space = to_proba_edges(large, p.scale_rho, p.beta)
+            wait.append(self.initial_space.probas)
         y = self._entropy_optimize(large, self.initial_space, init)
         self.embedding = y
         return y
@@ -195,7 +203,6 @@ class Embedder:
         """The JAX package's ``_entropy_optimize``: the dense sweeps or
         the sampling optimizer."""
         p = self.params
-        t0 = time.perf_counter()
         dense = _is_dense(p)
         logger.info("entropy optimization: starting (n=%d, k=%d, "
                     "optimizer=%s, batches=%d)", g.nb_nodes,
@@ -204,7 +211,10 @@ class Embedder:
         trace = device_trace(p.trace_dir,
                              f"entropy_optimization_n{g.nb_nodes}")
         with trace, self.timer.phase("entropy_optimization") as sync:
-            hub = hubness_sampling_weights(g) if p.hubness_weighting else None
+            hub = None
+            if p.hubness_weighting:
+                with span("hubness_weights"):
+                    hub = hubness_sampling_weights(g)
             if dense:
                 info = {"initial_ce": ce_value_dense(init, g, npar.probas,
                                                      npar.scale, p.b)}
@@ -227,7 +237,7 @@ class Embedder:
                     y = y.contiguous()
                     self.mesh.broadcast(y)
             sync.append(y)
-        info["optimize_time"] = time.perf_counter() - t0
+        info["optimize_time"] = self.timer.timings["entropy_optimization"]
         self.info.update(info)
         return y
 

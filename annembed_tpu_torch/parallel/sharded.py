@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..optim.ce import NB_NEGATIVE, EdgeSet, _common_coeff
 from ..params import PROBA_MIN
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -476,11 +477,12 @@ def sharded_dense_optimize(y0, g, npar, params, mesh: Mesh,
 
     y0 = y0.to(dev, torch.float32).contiguous().clone()
     mesh.broadcast(y0)
-    (y0_r, indices_r, w, m_visit, w_rev, m_rev, emb_scale, neg_weight,
-     n_neg, inv) = prepare_dense_inputs(
-        y0, g, npar, p, n_sub, n_groups,
-        None if neg_weights is None else neg_weights.to(dev),
-        relabel=relabel, generator=generator)
+    with span("relabel"):
+        (y0_r, indices_r, w, m_visit, w_rev, m_rev, emb_scale, neg_weight,
+         n_neg, inv) = prepare_dense_inputs(
+            y0, g, npar, p, n_sub, n_groups,
+            None if neg_weights is None else neg_weights.to(dev),
+            relabel=relabel, generator=generator)
 
     pad = (-n) % ndev
     if pad:

@@ -455,9 +455,8 @@ def check_kernel(name, q, c, reps, once=False):
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from annembed_tpu_torch.ops import dense_sweep, ivf_join
-    from annembed_tpu_torch.ops.top1 import top1_l2
-    top1_l2.launches = 0
+    from annembed_tpu_torch.ops import dense_sweep, ivf_join, top1
+    top1.reset_launch_count()
     ivf_join.reset_launch_counts()
     dense_sweep.reset_launch_counts()
 
@@ -1184,12 +1183,12 @@ def phase_bench():
     """Phase 5: bench.py's one-step workload at 70,000 x 784.  Returns
     the dense sweep kernels' counts."""
     from annembed_tpu_torch import bench
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     reset_launches()
     rec, t, y, tm = bench.run(bench.N, "cuda")
     dense = dense_counts()
     log(f"bench: phases (s) {json.dumps(t)}; manifold row {json.dumps(tm)}; "
-        f"top1_l2 launches={top1_l2.launches}; dense sweep launches="
+        f"top1_l2 launches={top1_launch_count()}; dense sweep launches="
         f"{json.dumps(dense)}")
     require_route("bench", dense, "persistent")
     log(json.dumps(rec))
@@ -1220,14 +1219,14 @@ def phase_dmap(at):
     """Phase 6: ``dmap_embed`` at 70,000 x 784, layer 0."""
     from annembed_tpu_torch.bench import D, N
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     x = synthetic_blobs(N, D, 42)
     reset_launches()
     t0 = time.perf_counter()
     y, info = at.dmap_embed(x, dim=2, device="cuda")
     wall = time.perf_counter() - t0
     log(f"dmap_embed: n={N} d={D} wall={wall:.2f} s info={json.dumps(info)} "
-        f"top1_l2 launches={top1_l2.launches}")
+        f"top1_l2 launches={top1_launch_count()}")
     if y.shape != (N, 2) or not np.isfinite(y).all():
         raise AssertionError(f"dmap_embed output {y.shape} or non-finite")
     return y
@@ -1239,7 +1238,7 @@ _CLI_COUNTED = (
     "import atexit, json, runpy, sys\n"
     "from annembed_tpu_torch.ops import dense_sweep as ds, top1\n"
     "atexit.register(lambda: print('launches: ' + json.dumps(dict(\n"
-    "    top1_l2=top1.top1_l2.launches, dense_sweep=ds.launch_counts())),\n"
+    "    top1_l2=top1.launch_count(), dense_sweep=ds.launch_counts())),\n"
     "    file=sys.stderr, flush=True))\n"
     "runpy.run_module('annembed_tpu_torch.cli', run_name='__main__',\n"
     "                 alter_sys=True)\n")
@@ -1323,7 +1322,7 @@ def phase_metrics(at):
     metric."""
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
     from annembed_tpu_torch.knn.brute import knn_search_brute
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     x = synthetic_blobs(METRIC_ROWS, METRIC_D, 5).astype(np.float32)
     prob = x / x.sum(1, keepdims=True)
     sample = np.sort(np.random.default_rng(0).choice(
@@ -1360,7 +1359,7 @@ def phase_metrics(at):
             f"{wall:.2f} s; {METRIC_SAMPLE} rows vs CPU ({cpu_s:.2f} s): "
             f"id agreement {agree:.5f} outside {int((~clear).sum())} "
             f"near-tie columns, max rel dist err {float(d_err.max()):.3e}, "
-            f"{bad_d} dists out of tol; top1_l2 launches={top1_l2.launches}, "
+            f"{bad_d} dists out of tol; top1_l2 launches={top1_launch_count()}, "
             f"dense sweep launches={json.dumps(launches[metric])}")
         if y.shape != (METRIC_ROWS, 2) or not np.isfinite(y).all():
             raise AssertionError(f"{metric}: embedding {y.shape} or "
@@ -1379,7 +1378,7 @@ def phase_sampling(at):
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io.synthetic import (synthetic_blobs,
                                                  synthetic_clustered_manifold)
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     from annembed_tpu_torch.utils.native import BACKENDS
     rows = {"": synthetic_blobs(bench.N, bench.D, 42),
             "manifold_": synthetic_clustered_manifold(bench.N, bench.D)}
@@ -1405,7 +1404,7 @@ def phase_sampling(at):
             f"total={info['total_time']:.3f} s; ce {info['initial_ce']:.6g} "
             f"-> {info['final_ce']:.6g}; hdbscan stages (s) "
             f"{json.dumps(c['timings'])}; top1_l2 launches="
-            f"{top1_l2.launches}")
+            f"{top1_launch_count()}")
         log(f"{tag}: {json.dumps(rec)}; quality {json.dumps(info['quality'])}")
         log(f"{tag}: host backends {json.dumps(BACKENDS)}")
         if BACKENDS != dict.fromkeys(("alias", "mst", "linkage", "condense"),
@@ -1528,7 +1527,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     join launches)."""
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     n = x.shape[0]
     x_host = x.cpu().numpy()
     torch.cuda.synchronize()
@@ -1540,7 +1539,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         params=at.EmbedderParams(grad_factor=5, hubness_weighting=True),
         **HIGGS_EMBED, **extra)
     wall = time.perf_counter() - t0
-    launches = top1_l2.launches
+    launches = top1_launch_count()
     dense = dense_counts()
     joins = join_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1711,7 +1710,7 @@ def phase_main_quality(at, y, graph, main_quality, search):
 def phase_full_quality(at, y, graph, frac_sampled):
     """Phase 13: the full-fraction quality estimate of phase 4's 11M
     embedding at nbng 50, through the certified grid."""
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1723,7 +1722,7 @@ def phase_full_quality(at, y, graph, frac_sampled):
     peak = torch.cuda.max_memory_allocated() / 2**30
     frac = est.frac_without_match
     log(f"full quality: n={N_ROWS} nbng={QUALITY_NBNG} wall={wall:.2f} s "
-        f"peak_mem={peak:.2f} GiB top1_l2 launches={top1_l2.launches}; "
+        f"peak_mem={peak:.2f} GiB top1_l2 launches={top1_launch_count()}; "
         f"{json.dumps(est.summary())}")
     _log_search("full quality", est.radius_search)
     log(f"full quality: frac_without_match {frac} vs phase 4's sampled "
@@ -2150,7 +2149,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
     import annembed_tpu_torch as at
     from annembed_tpu_torch import bench
     from annembed_tpu_torch.io.synthetic import synthetic_blobs
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     from annembed_tpu_torch.parallel.launch import load_rows
     dev = mesh.device
     out = {"rank": mesh.rank, "device": str(dev)}
@@ -2166,7 +2165,7 @@ def _mesh_rank(mesh, rows_path, y3, g3):
         quality_nbng=QUALITY_NBNG, mesh=mesh,
         **{k: v for k, v in HIGGS_EMBED.items() if k != "device"})
     out["a_wall"] = time.perf_counter() - t0
-    out["a_launches"] = top1_l2.launches
+    out["a_launches"] = top1_launch_count()
     out["a_dense"] = dense_counts()
     out["a_joins"] = join_counts()
     out["a_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30

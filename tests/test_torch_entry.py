@@ -91,7 +91,7 @@ def test_embed_csv_with_quality_and_outfile_matches_jax(tmp_path, fraction):
         out[name] = (np.asarray(y), info, d)
     (yj, ij, dj), (yt, it, dt) = out["jax"], out["torch"]
     assert yt.shape == yj.shape and np.isfinite(yt).all()
-    assert set(it) == set(ij)
+    assert set(it) == set(ij) | {"spans", "counters"}
     assert set(it["quality"]) == set(ij["quality"])
     assert sorted(os.listdir(dt)) == sorted(os.listdir(dj)) == [
         "continuity_ratio.csv", "embedded.csv", "first_dist.csv"]

@@ -22,6 +22,7 @@ from annembed_tpu_torch.knn.distances import corpus_sqnorm, l2_expansion
 from annembed_tpu_torch.knn.distances import l2_pair as t_pair
 from annembed_tpu_torch.knn.distances import l2_panel as t_panel
 from annembed_tpu_torch.knn.hierarchy import build_projection as t_projection
+from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
 from annembed_tpu_torch.ops.top1 import top1_l2, top1_l2_reference
 from annembed_tpu_torch.graph.kgraph import KGraph
 
@@ -91,10 +92,10 @@ def test_top1_twin_matches_pallas_interpret(rng, nq, m, d, shift, block_q,
     q = rng.normal(size=(nq, d)).astype(np.float32)
     c = rng.normal(size=(m, d)).astype(np.float32) + shift
     j_out = j_top1(q, c, block_q=block_q, tile_m=tile_m, interpret=True)
-    before = top1_l2.launches
+    before = top1_launch_count()
     t_out = top1_l2(torch.from_numpy(q), torch.from_numpy(c))
     _check(t_out, j_out, "top1_l2 twin vs Pallas interpret")
-    assert top1_l2.launches == before, "CPU tensors must not launch"
+    assert top1_launch_count() == before, "CPU tensors must not launch"
 
 
 def test_top1_twin_ties_go_to_lowest_index():
@@ -187,10 +188,10 @@ def test_top1_kernel_matches_twin_on_card(cuda_device, nq, m, d, shift):
     g = torch.Generator().manual_seed(nq + m + d)
     q = torch.randn(nq, d, generator=g).to(cuda_device)
     c = (torch.randn(m, d, generator=g) + shift).to(cuda_device)
-    before = top1_l2.launches
+    before = top1_launch_count()
     ki, kd = top1_l2(q, c)
     torch.cuda.synchronize()
-    assert top1_l2.launches == before + 1
+    assert top1_launch_count() == before + 1
     _assert_kernel_matches_twin(q, c, ki, kd)
 
 

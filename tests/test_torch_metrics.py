@@ -17,7 +17,7 @@ from annembed_tpu_torch.knn import distances as td
 from annembed_tpu_torch.knn.brute import (knn_graph_brute as t_graph,
                                           knn_search_brute as t_search)
 from annembed_tpu_torch.knn.hierarchy import build_projection as t_projection
-from annembed_tpu_torch.ops.top1 import top1_l2
+from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
 
 RTOL = 1e-5
 #: relative distance gap under which two neighbours are a near-tie
@@ -125,11 +125,11 @@ def test_exact_ties_go_to_the_lower_index(rng, metric):
 def test_projection_uses_the_metric(rng, metric):
     x = _data(rng, metric, 300, 6)
     jp = j_projection(x, 5, sample_fraction=0.2, seed=3, distance=metric)
-    before = top1_l2.launches
+    before = top1_launch_count()
     tp = t_projection(torch.from_numpy(x), 5, sample_fraction=0.2,
                       distance=metric,
                       sample_ids=torch.from_numpy(np.array(jp.sample_ids)))
-    assert top1_l2.launches == before
+    assert top1_launch_count() == before
     np.testing.assert_array_equal(tp.proj_small_idx.numpy(),
                                   np.asarray(jp.proj_small_idx))
     np.testing.assert_allclose(tp.proj_dist.numpy(), np.asarray(jp.proj_dist),

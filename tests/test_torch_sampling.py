@@ -241,7 +241,7 @@ def test_embed_sampling_matches_jax_statistically():
     yt, it = ta.embed(x, params=TEP(optimizer="sampling"), device="cpu", **kw)
     assert yt.shape == np.asarray(yj).shape == (1000, 2)
     assert np.isfinite(yt).all()
-    assert set(it) == set(ij)
+    assert set(it) == set(ij) | {"spans", "counters"}
     assert (it["batch_size"], it["steps_per_batch"]) == \
         (ij["batch_size"], ij["steps_per_batch"])
     assert it["final_ce"] < it["initial_ce"]

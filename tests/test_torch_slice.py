@@ -52,7 +52,8 @@ def test_hierarchical_embed_matches_jax_statistically():
         assert acc >= 0.85, f"{name} cluster accuracy {acc} < 0.85"
     assert set(ij) <= set(it), set(ij) - set(it)
     assert set(it) - set(ij) == {"graph_build_phases",
-                                 "projection_distance_quantiles"}
+                                 "projection_distance_quantiles", "spans",
+                                 "counters"}
     assert set(it["first_step"]) == set(ij["first_step"])
     assert it["first_step"]["final_ce"] < it["first_step"]["initial_ce"]
 
@@ -102,7 +103,8 @@ def test_hierarchical_embed_ivf_matches_jax(monkeypatch):
         acc = _accuracy(y, labels)
         assert acc >= 0.85, f"{name} cluster accuracy {acc} < 0.85"
     assert set(it) - set(ij) == {"graph_build_phases",
-                                 "projection_distance_quantiles"}
+                                 "projection_distance_quantiles", "spans",
+                                 "counters"}
     phases = set(it["graph_build_phases"])
     assert {"small_graph", "large_graph", "projection"} < phases
     assert {f"large_graph/{p}" for p in (

@@ -67,7 +67,7 @@ def _gather_ms(mesh, n: int, dim: int = 2) -> float:
 
 def _rank(mesh, rows_path: str):
     import annembed_tpu_torch as at
-    from annembed_tpu_torch.ops.top1 import top1_l2
+    from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
     from chip_smoke import dense_launches, rank_checksum, reset_launches
     from annembed_tpu_torch.parallel.launch import load_rows
     dev = mesh.device
@@ -85,7 +85,7 @@ def _rank(mesh, rows_path: str):
                         device=dev)
     sums = mesh.all_gather_rows(mine).tolist()
     out = dict(rank=mesh.rank, wall=wall, peak_gib=peak,
-               launches=top1_l2.launches, dense=dense_launches(),
+               launches=top1_launch_count(), dense=dense_launches(),
                checksums=sums,
                gather_ms=_gather_ms(mesh, y.shape[0]))
     if mesh.rank == 0:
