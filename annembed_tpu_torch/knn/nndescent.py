@@ -15,8 +15,12 @@ full neighbourhood is always appended as direct candidates, so one-hop
 reverse edges are never lost.  The uniforms of each round are an
 argument, or come from a generator on the data's device.
 
-Rows are processed in slabs whose candidate gather fits a byte budget;
-tables are int32 in memory and widened where torch wants int64.
+A round's local join runs where ``ops.nndescent.round_route`` sends its
+shape: one launch of the hand-written kernel over every row (DistL2 on
+the card), or ``_nndescent_slab`` over rows in slabs whose candidate
+gather fits a byte budget.  Tables are int32 in memory and widened where
+torch wants int64.  The counter ``knn.nndescent.pairs`` counts the
+candidate distances the rounds score.
 """
 
 from __future__ import annotations
@@ -25,9 +29,13 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..utils.profiling import PhaseTimer
+from ..ops.nndescent import _outputs, nndescent_round
+from ..utils.profiling import PhaseTimer, count
 from .brute import _topk_lowest_index
 from .distances import PANEL_BYTES, get_pair_fn
+
+#: the registry counter of the candidate distances the rounds score
+PAIRS = "knn.nndescent.pairs"
 
 
 def _reverse_table(indices: torch.Tensor, capacity: int,
@@ -82,8 +90,9 @@ def _sample_union_pp(uniforms: torch.Tensor, union_pp: torch.Tensor,
 def _nndescent_slab(x_pad: torch.Tensor, inner_pp: torch.Tensor,
                     cur_idx: torch.Tensor, cur_dist: torch.Tensor,
                     uni: torch.Tensor, full: torch.Tensor,
-                    rid: torch.Tensor, k: int, distance: str = "DistL2"):
-    """One slab of the local join.
+                    rid: torch.Tensor, k: int, distance: str = "DistL2",
+                    pairs: Optional[torch.Tensor] = None):
+    """One slab of the local join (the twin of ``csrc/nndescent.cu``).
 
     ``inner_pp`` (n + 1, s) is the (possibly rho-sampled) neighbourhood
     used for the inner hop; ``uni`` (rows, s) the outer sampled
@@ -94,7 +103,8 @@ def _nndescent_slab(x_pad: torch.Tensor, inner_pp: torch.Tensor,
     Duplicate candidates (one node reached through several lists) are
     removed by an id sort + adjacent-equal mask before the top-k merge,
     and duplicates already inside the current list are set to inf first,
-    so fresh candidates can evict them."""
+    so fresh candidates can evict them.  ``pairs`` (an int64 scalar
+    tensor), when given, gains the number of candidates scored."""
     pair_fn = get_pair_fn(distance)
     n = x_pad.shape[0] - 1
     rows, kk = cur_idx.shape
@@ -115,7 +125,10 @@ def _nndescent_slab(x_pad: torch.Tensor, inner_pp: torch.Tensor,
     invalid = (cand >= n) | (cand == rid[:, None]) | dup
     # already-known neighbours would be duplicates in the merge
     known = (cand[:, :, None] == cur_idx[:, None, :]).any(-1)
-    cd.masked_fill_(invalid | known, float("inf"))
+    skip = invalid | known
+    cd.masked_fill_(skip, float("inf"))
+    if pairs is not None:
+        pairs += (~skip).sum()
     all_d = torch.cat([cur_dist, cd], dim=1)
     all_i = torch.cat([cur_idx, cand], dim=1)
     new_d, pos = _topk_lowest_index(all_d, k)
@@ -154,9 +167,11 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
     symmetrized neighbourhood.  ``uniforms``, one (n + 1, k + rc) tensor
     per round, may be given; otherwise each round draws its own from a
     generator on x's device seeded ``seed + 1013``.  ``slab_bytes``
-    bounds one slab's (rows, C, d) f32 gather; results do not depend on
-    it.  ``timer`` receives the wall seconds of the phases
-    ``nndescent_round_<i>`` and ``nndescent_rerank``.
+    bounds one slab's (rows, C, d) f32 gather of the torch route and the
+    slab plan of a mesh; results do not depend on it.  ``timer`` receives
+    the wall seconds of the phases ``nndescent_round_<i>`` and
+    ``nndescent_rerank``; the counter ``knn.nndescent.pairs`` the
+    candidates each round scores, read after its span's sync.
 
     ``mesh`` (parallel/sharded.py, through ``sharded_nndescent_refine``)
     gives rank r every size-th slab of the one slab plan; the union
@@ -179,20 +194,24 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
     # (rows, C, k) known mask are live together
     slab = max(1, slab_bytes // (cand_per_row * (12 * d + k)))
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    indices = indices.to(torch.int32)
+    indices = indices.to(torch.int32).contiguous()
+    dists = dists.to(torch.float32).contiguous()
     gen = None
     if timer is None:
         timer = PhaseTimer()
     for rnd in range(n_rounds):
         with timer.phase(f"nndescent_round_{rnd + 1}") as sync:
-            indices, dists, gen = _round(
-                x_pad, indices, dists, ids, rnd, rev_capacity, s, slab,
+            indices, dists, gen, pairs = _round(
+                x_pad, indices, dists, rnd, rev_capacity, s, slab,
                 distance, uniforms, gen, seed, mesh)
             sync.append(dists)
+        # read after the span's sync: no stall of its own
+        count(PAIRS, pairs.item())
+        del pairs
     if score_bf16:
         with timer.phase("nndescent_rerank") as sync:
             rr_slab = max(1, slab_bytes // (12 * k * d))
-            out_i, out_d = _outputs(indices, dists, mesh)
+            out_i, out_d = _outputs(indices, dists, _size(mesh))
             for s0 in _own_slabs(n, rr_slab, mesh):
                 s1 = min(s0 + rr_slab, n)
                 out_i[s0:s1], out_d[s0:s1] = _exact_rerank_slab(
@@ -205,15 +224,15 @@ def nndescent_refine(x: torch.Tensor, indices: torch.Tensor,
 def _own_slabs(n: int, slab: int, mesh):
     """First rows of the slabs this rank runs: all of them, or every
     size-th under a mesh."""
-    starts = range(0, n, slab)
-    return starts if mesh is None else starts[mesh.rank::mesh.size]
+    return range(0, n, slab)[_rank(mesh)::_size(mesh)]
 
 
-def _outputs(indices, dists, mesh):
-    """A round's output tables: zero-filled under a mesh, where the
-    ranks' partial tables are summed."""
-    make = torch.empty_like if mesh is None else torch.zeros_like
-    return make(indices), make(dists)
+def _rank(mesh) -> int:
+    return 0 if mesh is None else mesh.rank
+
+
+def _size(mesh) -> int:
+    return 1 if mesh is None else mesh.size
 
 
 def _merge(out_i, out_d, mesh):
@@ -222,12 +241,13 @@ def _merge(out_i, out_d, mesh):
     return out_i, out_d
 
 
-def _round(x_pad, indices, dists, ids, rnd: int, rev_capacity: int, s: int,
+def _round(x_pad, indices, dists, rnd: int, rev_capacity: int, s: int,
            slab: int, distance: str, uniforms, gen, seed: int, mesh=None):
-    """One NN-descent round over all rows, slab by slab.  Returns the new
-    (indices, dists) and the generator (made at the first sampled
-    round)."""
-    n, k = indices.shape
+    """One NN-descent round over all rows (``ops.nndescent``'s route).
+    Returns the new (indices, dists), the generator (made at the first
+    sampled round) and the candidates scored (an int64 scalar on the
+    device, made after the union table, whose sorts are the round's
+    peak)."""
     dev = indices.device
     union_pp = _union_pp(indices, rev_capacity, dists)
     inner_pp = union_pp
@@ -240,11 +260,9 @@ def _round(x_pad, indices, dists, ids, rnd: int, rev_capacity: int, s: int,
             un = torch.rand(union_pp.shape, generator=gen, device=dev)
         inner_pp = _sample_union_pp(un, union_pp, s)
         del un
-    out_i, out_d = _outputs(indices, dists, mesh)
-    for s0 in _own_slabs(n, slab, mesh):
-        s1 = min(s0 + slab, n)
-        out_i[s0:s1], out_d[s0:s1] = _nndescent_slab(
-            x_pad, inner_pp, indices[s0:s1], dists[s0:s1], inner_pp[s0:s1],
-            union_pp[s0:s1], ids[s0:s1], k, distance)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    out_i, out_d = nndescent_round(x_pad, inner_pp, union_pp, indices, dists,
+                                   slab, distance, _rank(mesh), _size(mesh),
+                                   pairs)
     out_i, out_d = _merge(out_i, out_d, mesh)
-    return out_i, out_d, gen
+    return out_i, out_d, gen, pairs

@@ -45,6 +45,16 @@ CUDA device it exits 1 before printing any result):
    outside near-ties of the ranked value, dists within 1e-5 relative,
    two launches bit-equal, the tensor-core kernel's expansion error
    within TIE_REL, each timed beside ``join_bounds``;
+3d. the NN-descent round kernel (``ops/nndescent.py``) against its twin,
+   the torch slab chain, on one round's tables (the union table and its
+   rho-sampled subset): the Higgs path's 11,000,000-row large graph and
+   its 440,000-row sample (k 12, rho 0.5: 168 candidates a row, bf16),
+   the first 1,000,000 rows in f32, and at k 20 (440 candidates a row,
+   the kernel's 512-slot sort); ids equal outside near-ties, each
+   differing id's distance its own, dists within 1e-5 relative, inf
+   where the twin has inf, the scored counts equal,
+   two launches bit-equal; each timed beside its byte bound and the
+   twin, and the whole round (union table, sampling, kernel) timed;
 4. the main path: ``embed(x, layer=1)`` on 11,000,000 x 28 Higgs-shaped
    rows (the reference's Higgs operating point: nbng 6, hierarchy
    fraction 0.04, scale 0.75, batch 40, grad_factor 5, hubness weighting;
@@ -118,6 +128,8 @@ CUDA device it exits 1 before printing any result):
    with W > 1, (b) once more through ``embed(n_devices=W)``.
 
 Before each path the kernel launch counts are set to 0 and read after it;
+phase 4's main path must run its 8 NN-descent rounds (4 on each graph)
+on the round kernel and none on torch;
 every graph above the brute limit must launch the IVF join kernel
 (phase 4's main path and parts, the harness, every rank of phase 15 (a)
 and (d)), and the exact path none; every dense path must launch the
@@ -177,7 +189,8 @@ D2_REL = 1e-5
 MIN_RECALL = 0.99                # exact graphs
 MIN_PURITY = 0.9
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCES = ("top1_l2", "dense_sweep", "ivf_join", "ivf_join_tc")
+KERNEL_SOURCES = ("top1_l2", "dense_sweep", "ivf_join", "ivf_join_tc",
+                  "nndescent")
 # phase 3: the kernel's other shapes on the path (bench rows at the
 # default hierarchy fraction); the H100 SXM data sheet's peaks for the
 # bounds
@@ -218,6 +231,14 @@ JOIN_DEFAULT_K, JOIN_WIDE_K = 20, 32
 JOIN_SMALL_ROWS, JOIN_SMALL_K, JOIN_SMALL_NLIST = 5_003, 20, 400
 JOIN_QUALITY_K = QUALITY_NBNG + 1
 H100_BF16_FLOPS = 989e12
+# phase 3d: one NN-descent round, the round kernel against the torch slab
+# chain on the same tables: the main path's two graphs (k 12 = 2 knbn,
+# rho 0.5, bf16 scoring), a 1M f32 slice, and k 20 at rho 0.5 (440
+# candidates a row); ids equal outside near-ties of the row neighbours
+# (the last column's too, where its two distances are within 1e-5), each
+# differing id's distance its own, every column's distances within 1e-5,
+# all relative (tools/nndescent_host_check.py::agreement)
+ROUND_RHO, ROUND_WIDE_K = 0.5, 20
 
 # phase 5: the JAX package (annembed_tpu) on the CPU backend, the same
 # workload with the same exact f32 graph, the mean of seeds 0 / 1 / 2
@@ -455,10 +476,11 @@ def check_kernel(name, q, c, reps, once=False):
 
 def reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from annembed_tpu_torch.ops import dense_sweep, ivf_join, top1
+    from annembed_tpu_torch.ops import dense_sweep, ivf_join, nndescent, top1
     top1.reset_launch_count()
     ivf_join.reset_launch_counts()
     dense_sweep.reset_launch_counts()
+    nndescent.reset_launch_counts()
 
 
 def join_counts() -> dict:
@@ -658,6 +680,126 @@ def phase_join(x):
     shapes.append(check_join("quality_300k_k51",
                              plan(x3, JOIN_QUALITY_K, nprobe=32), "float32",
                              reps=5))
+    return shapes
+
+
+def round_inputs(x, idx, dist, dtype, rho=ROUND_RHO, seed=SEED):
+    """One NN-descent round's tables as ``nndescent_refine`` builds them
+    from the graph (``idx``, ``dist``) of ``x``: the scoring rows, the
+    union table, its rho-sampled subset (a generator seeded ``seed``),
+    the current lists and the slab plan."""
+    from annembed_tpu_torch.knn import nndescent as tnd
+    n, d = x.shape
+    k = idx.shape[1]
+    x_score = x.to(torch.bfloat16) if dtype == "bfloat16" else x
+    x_pad = torch.cat([x_score, x_score.new_zeros((1, d))])
+    union_pp = tnd._union_pp(idx, k, dist)
+    u = union_pp.shape[1]
+    s = u if rho >= 1.0 else max(2, int(round(rho * u)))
+    inner_pp = union_pp
+    if s < u:
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        inner_pp = tnd._sample_union_pp(
+            torch.rand(union_pp.shape, generator=gen, device=x.device),
+            union_pp, s).contiguous()
+    slab = max(1, tnd.PANEL_BYTES // ((s * s + u) * (12 * d + k)))
+    return dict(x_pad=x_pad, inner_pp=inner_pp, union_pp=union_pp,
+                indices=idx.to(torch.int32).contiguous(),
+                dists=dist.contiguous(), slab=slab)
+
+
+def round_bound_ms(pairs, n, d, k, dtype):
+    """Least time (ms) an H100 SXM could take for one round: each scored
+    candidate's row read once in the scoring dtype, the (n, k) ids and
+    distances read and written once, at 3.35 TB/s (the benchmark's
+    ``nndescent_roofline`` counts the same bytes)."""
+    row = (2 if dtype == "bfloat16" else 4) * d
+    return 1e3 * (pairs * row + 16.0 * n * k) / H100_BYTES_PER_S
+
+
+def check_round(name, x, idx, dist, dtype, reps):
+    """The round kernel against the torch slab chain on one round's
+    tables: every row (``agreement``: ids equal outside near-ties, each
+    differing id's distance its own, dists within 1e-5 relative, inf
+    where the twin has inf, rows ascending), the scored counts equal, two launches bit-equal;
+    timed over ``reps`` launches beside the byte bound and the twin's one
+    call, and the whole round (union table, sampling, kernel) as
+    ``nndescent_refine`` runs it."""
+    from annembed_tpu_torch.knn import nndescent as tnd
+    from annembed_tpu_torch.ops import nndescent as nd
+    from tools.nndescent_host_check import agreement
+    inp = round_inputs(x, idx, dist, dtype)
+    n, k = inp["indices"].shape
+    d = x.shape[1]
+    c = inp["inner_pp"].shape[1] ** 2 + inp["union_pp"].shape[1]
+    route = nd.round_route("cuda", "DistL2", dtype, k, c, d)
+    if route != "kernel":
+        raise AssertionError(f"round {name}: route {route}, not the kernel")
+    stream = torch.cuda.current_stream().cuda_stream
+    p_want = torch.zeros((), dtype=torch.int64, device=x.device)
+    twin = {}
+    twin_ms = cuda_once_ms(lambda: twin.update(
+        out=nd.nndescent_round_reference(**inp, pairs=p_want)))
+    wi, wd = twin.pop("out")
+    p_got = torch.zeros((), dtype=torch.int64, device=x.device)
+    gi, gd = nd._round(nd._kernel(), stream, **inp, pairs=p_got)
+    ai, ad = nd._round(nd._kernel(), stream, **inp)
+    torch.cuda.synchronize()
+    repeat = torch.equal(gi, ai) and torch.equal(gd, ad)
+    del ai, ad
+    agree = agreement(gi, gd, wi, wd, inp["x_pad"])
+    rows_differ = int(((gi != wi) | (gd != wd)).any(1).sum())
+    inf_rows = int(torch.isinf(wd).any(1).sum())
+    del gi, gd, wi, wd
+    pairs = int(p_got)
+    ms = cuda_ms(lambda: nd._round(nd._kernel(), stream, **inp), reps)
+    bound = round_bound_ms(pairs, n, d, k, dtype)
+    s = inp["inner_pp"].shape[1]
+    x_pad = inp["x_pad"]
+    idx32, dist32 = inp["indices"], inp["dists"]
+    del inp
+    whole_ms = cuda_ms(lambda: tnd._round(
+        x_pad, idx32, dist32, 0, k, s, 1, "DistL2", None, None, SEED),
+        reps)
+    out = dict(shape=name, n=n, d=d, k=k, candidates=c, dtype=dtype,
+               pairs=pairs, pairs_twin=int(p_want), ms=ms, twin_ms=twin_ms,
+               whole_round_ms=whole_ms, bound_ms=bound,
+               share_of_bound=bound / ms, repeat_bit_equal=repeat,
+               rows_differing=rows_differ, twin_inf_rows=inf_rows,
+               **{key: v for key, v in agree.items() if key != "bit_equal"})
+    log(f"round {name}: " + json.dumps(out))
+    if (not repeat or agree["id_mismatch"] or agree["own_mismatch"]
+            or agree["dist_mismatch"] or agree["inf_mismatch"]
+            or agree["unsorted_rows"]
+            or pairs != int(p_want)):
+        raise AssertionError(f"the round kernel disagrees with its twin at "
+                             f"{name}: {out}")
+    return out
+
+
+def phase_nndescent(x):
+    """Phase 3d: the NN-descent round kernel against its twin at the
+    main path's shapes (its 11M graph and its 440,000-row sample, built
+    by the IVF join at phase 4's knobs) and at a 1M f32 slice (k 12 and
+    k 20).  Returns each shape's record, the 11M one first."""
+    from annembed_tpu_torch.knn.hierarchy import draw_sample_ids
+    from annembed_tpu_torch.knn.ivf import knn_graph_ivf
+    n = x.shape[0]
+    m = max(KNN_K + 1, int(round(n * FRACTION)))
+    small = x[draw_sample_ids(n, m, torch.Generator().manual_seed(SEED))
+              .to(x.device)].contiguous()
+    shapes = []
+    for name, rows, k, dtype, reps in (
+            ("higgs_11m", x, JOIN_K, "bfloat16", 3),
+            ("higgs_440k", small, JOIN_K, "bfloat16", 10),
+            ("slice_1m_float32", x[:PARTS_ROWS].contiguous(), JOIN_K,
+             "float32", 5),
+            (f"slice_1m_float32_k{ROUND_WIDE_K}",
+             x[:PARTS_ROWS].contiguous(), ROUND_WIDE_K, "float32", 5)):
+        idx, dist = knn_graph_ivf(rows, k, nprobe=24, dtype="bfloat16")
+        shapes.append(check_round(name, rows, idx, dist, dtype, reps))
+        del idx, dist
+        torch.cuda.empty_cache()
     return shapes
 
 
@@ -1524,7 +1666,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     CUDA tensor ``x``, launch counts from zero, held to a finite (n, 2)
     output, one launch at least of each kernel, graph recall and label
     purity.  Returns (top-1 launches, dense sweep counts, info, y, IVF
-    join launches)."""
+    join launches, NN-descent rounds by route)."""
     from annembed_tpu_torch.io.synthetic import label_purity
     from annembed_tpu_torch.knn.api import sampled_exact_recall
     from annembed_tpu_torch.ops.top1 import launch_count as top1_launch_count
@@ -1542,6 +1684,8 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     launches = top1_launch_count()
     dense = dense_counts()
     joins = join_counts()
+    from annembed_tpu_torch.ops.nndescent import launch_counts as nnd_counts
+    rounds = nnd_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     first = info["first_step"]
     # what is left of the total: edge probabilities, the jittered
@@ -1561,7 +1705,8 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         f"{first['final_ce']:.6g} ({first['sweeps']} sweeps); large step ce "
         f"{info['initial_ce']:.6g} -> {info['final_ce']:.6g} "
         f"({info['sweeps']} sweeps); top1_l2 launches={launches}, dense "
-        f"sweep launches={json.dumps(dense)}, ivf_join launches={joins}")
+        f"sweep launches={json.dumps(dense)}, ivf_join launches={joins}, "
+        f"nndescent rounds={rounds}")
     log(f"{tag}: projection distance quantiles "
         f"{json.dumps(info['projection_distance_quantiles'])}")
     if "quality" in info:
@@ -1587,6 +1732,15 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
     require_route(tag, dense, "persistent", joins if ivf else None)
     if not ivf and sum(joins.values()):
         raise AssertionError(f"{tag}: {joins} join launches on exact graphs")
+    # every NN-descent round of a graph above the brute limit on the round
+    # kernel (the Higgs knobs: 168 candidates a row), none on torch
+    kp = at.KnnParams(**knn)
+    graphs = sum(r > kp.brute_force_limit
+                 for r in (n, max(KNN_K + 1, int(round(n * FRACTION)))))
+    want = graphs * kp.refine_rounds if knn == HIGGS_KNN else 0
+    if rounds != {"kernel": want, "torch": 0}:
+        raise AssertionError(f"{tag}: NN-descent rounds {rounds}, not "
+                             f"{want} on the kernel")
     if dense["persistent_sweeps"] != first["sweeps"] + info["sweeps"]:
         raise AssertionError(f"{tag}: {dense['persistent_sweeps']} sweeps "
                              f"in persistent launches, not "
@@ -1595,7 +1749,7 @@ def _hierarchical(at, x, labels, batches, knn, min_recall, tag, **extra):
         raise AssertionError(f"{tag}: recall@{KNN_K} {recall} < {min_recall}")
     if purity < MIN_PURITY:
         raise AssertionError(f"{tag}: label purity {purity} < {MIN_PURITY}")
-    return launches, dense, info, y, joins
+    return launches, dense, info, y, joins, rounds
 
 
 def rank_checksum(t: torch.Tensor) -> int:
@@ -2430,11 +2584,17 @@ def main() -> int:
     join_shapes = phase_join(x)
     torch.cuda.empty_cache()
     log(f"phase 3c (IVF join kernel): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    round_shapes = phase_nndescent(x)
+    torch.cuda.empty_cache()
+    log(f"phase 3d (NN-descent round kernel): "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # phase 4: the main path at full size, then the exact hierarchical
     # path at a smaller depth, then the parts of the IVF build
     t0 = time.perf_counter()
-    launches, main_dense, main_info, y, main_joins = _hierarchical(
+    (launches, main_dense, main_info, y, main_joins,
+     main_rounds) = _hierarchical(
         at, x, labels, MAIN_BATCHES, HIGGS_KNN, MIN_RECALL_IVF, "main path",
         with_quality=True, quality_fraction=QUALITY_FRACTION,
         quality_nbng=QUALITY_NBNG)
@@ -2460,7 +2620,7 @@ def main() -> int:
     del graph, main_info
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    exact_launches, exact_dense, _, _, exact_joins = _hierarchical(
+    exact_launches, exact_dense, _, _, exact_joins, _ = _hierarchical(
         at, x[:EXACT_ROWS].contiguous(), labels[:EXACT_ROWS], EXACT_BATCHES,
         dict(knbn=KNN_K), MIN_RECALL, "exact path")
     log(f"phase 4 (exact path): {time.perf_counter() - t0:.2f} s")
@@ -2607,8 +2767,21 @@ def main() -> int:
                            parts_joins["quality_ivf"]["simt"],
                            "parts: the full-fraction quality estimate's "
                            "IVF radius rebuild, 300,000 x 3, k 51")
+    main_round = round_shapes[0]
+    nndescent = {
+        "name": "nndescent", "route": "cuda",
+        "source": "annembed_tpu_torch/csrc/nndescent.cu",
+        "replaces": "annembed_tpu/knn/nndescent.py:87",
+        "replaces_note": "XLA code (:87-165, _nndescent_slab); the JAX "
+                         "package has no Pallas kernel for the round; no "
+                         "single PyTorch call computes it",
+        "main_path_rounds": main_rounds,
+        "ms": main_round["ms"], "plain_ms": main_round["twin_ms"],
+        "bound_ms": main_round["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "at_shape": main_round["shape"],
+        "shapes": round_shapes}
     log(json.dumps({"kernels": [top1, sweep, persistent, join_tc,
-                                join_simt]}))
+                                join_simt, nndescent]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -83,6 +83,14 @@ def test_embed_spans_nest_cover_and_give_the_timings(layer):
             assert got == pytest.approx(sum(map(_seconds, want)),
                                         rel=1e-12), key
     assert info["counters"]["knn.ivf.pairs"] > 0
+    # every NN-descent round of both graphs counted on the route that
+    # served it (the CPU: torch), and the candidates it scored
+    rounds = len(graphs) * KNN.refine_rounds
+    assert info["counters"]["ops.nndescent.torch"] == rounds
+    assert "ops.nndescent.kernel" not in info["counters"]
+    assert info["counters"]["knn.nndescent.pairs"] > 0
+    assert len([s for s in sp if s[0].startswith("nndescent_round_")]) \
+        == rounds
 
 
 def test_cache_timings_are_their_spans(tmp_path):

@@ -34,8 +34,10 @@ sys.path.insert(0, str(ROOT))
 from portbench import harness, spans as sp, tracing  # noqa: E402
 
 #: kernel-name parts and the span that has to hold each one's activities
+#: (a name ending in "_": every span it begins)
 KERNEL_SPANS = {"ivf_join": "ivf_join", "top1_l2_kernel": "projection",
-                "sweeps_kernel": "entropy_optimization"}
+                "sweeps_kernel": "entropy_optimization",
+                "nndescent_round_kernel": "nndescent_round_"}
 
 
 def depth(spans: list, i: int) -> int:
@@ -78,7 +80,8 @@ def kernels_inside(trace: tracing.Trace, spans: list) -> dict:
         acts = [(s, e) for n, s, e in trace.device if part in n]
         if not acts:
             continue
-        inside = sp.union((s, e) for n, _, s, e in spans if n == name)
+        inside = sp.union((s, e) for n, _, s, e in spans if n == name
+                          or (name.endswith("_") and n.startswith(name)))
         total = sum(e - s for s, e in acts)
         out[part] = {"device_s": total * 1e-9,
                      "inside_share": sp.overlap_ns(sp.union(acts), inside)
