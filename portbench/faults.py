@@ -13,6 +13,15 @@ answer is produced, and restores it on exit.
 * ``kicks_dropped``: every sweep of the dense optimizer gives each row
   2 of its n_neg repulsion kicks (5 at the configurations' n_sub).
 
+On a mesh every rank plants the same fault (each runs the same
+calibration, ``mesh.spmd``), and each optimizer fault is planted in the
+sharded optimizer too (``parallel/sharded.py``: its result, its kick
+rows).  A mesh has one fault of its own:
+
+* ``exchange_dropped``: the sharded dense optimizer's row all-gather
+  after each half-sweep hands each rank its own block and leaves the
+  other ranks' rows as they were before it.
+
 ``sweeps_skipped`` (the dense optimizer runs two of every four sweeps,
 so that both column groups keep theirs) is planted the same way but is
 no fault the check can see: the schedule has come to rest by then, and
@@ -21,7 +30,8 @@ every reading of the result stays as a sound run's.
 ``bf16_sweeps`` is the control of the optimizer, not a fault: the dense
 optimizer with its state held in bfloat16, rounded at the start and
 after every sweep, as a sweep that stored its coordinates in bfloat16
-would leave them.
+would leave them (on a mesh: the start and each rank's kick rows
+rounded before they are gathered).
 
 A cell on one card has no exchange between cards to leave out.
 """
@@ -34,6 +44,8 @@ import torch
 
 KINDS = ("unchanged", "half", "graph", "projection", "embedding",
          "kicks_dropped")
+#: faults only a mesh can have
+MESH_KINDS = ("exchange_dropped",)
 #: planted the same way, but the optimizer's control
 CONTROLS = ("bf16_sweeps",)
 
@@ -57,6 +69,24 @@ def shifted(y: torch.Tensor) -> torch.Tensor:
     return torch.roll(y, 1, 0)
 
 
+class OwnBlock:
+    """The mesh as the sharded dense segment sees it under
+    ``exchange_dropped``: its row all-gather hands each rank its own
+    block and keeps the other ranks' rows as the previous gather (or the
+    segment's start) left them."""
+
+    def __init__(self, mesh):
+        self.rank, self.size, self.device = mesh.rank, mesh.size, mesh.device
+        self.y = None
+
+    def all_gather_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        m = rows.shape[0]
+        y = self.y.clone()
+        y[self.rank * m:(self.rank + 1) * m] = rows
+        self.y = y
+        return y
+
+
 def _alter_graph(g):
     return type(g)(indices=wrong_neighbour(g.indices, g.indices.shape[0]),
                    dists=g.dists)
@@ -66,8 +96,10 @@ def _alter_graph(g):
 def planted(kind: str):
     """The program with fault ``kind`` planted, for the block's length."""
     import annembed_tpu_torch.api as api
+    import annembed_tpu_torch.ops.dense_sweep as ds
     import annembed_tpu_torch.optim.dense as od
     import annembed_tpu_torch.optim.embedder as em
+    import annembed_tpu_torch.parallel.sharded as sh
 
     saved = []
 
@@ -75,20 +107,27 @@ def planted(kind: str):
         saved.append((obj, name, obj.__dict__[name]))
         setattr(obj, name, new)
 
-    dense = em.run_dense_optimization
+    # the one-card optimizer and the sharded one (the embedder's under a
+    # mesh), each patched where its caller looks it up
+    optimizers = ((em, "run_dense_optimization", em.run_dense_optimization),
+                  (sh, "sharded_dense_optimize", sh.sharded_dense_optimize))
     sweeps = od.dense_sweeps
+    kick_rows = ds.dense_kick_rows
     build_kgraph, build_projection = api.build_kgraph, api.build_projection
     if kind == "unchanged":
-        patch(em, "run_dense_optimization",
-              lambda y0, *a, **kw: (y0.clone(), {"optimizer": "dense",
-                                                 "sweeps": 0}))
+        for obj, name, _ in optimizers:
+            patch(obj, name, lambda y0, *a, **kw: (
+                y0.clone(), {"optimizer": "dense", "sweeps": 0}))
     elif kind == "half":
-        def halved(y0, *a, **kw):
-            y, info = dense(y0, *a, **kw)
-            y = y.clone()
-            y[y.shape[0] // 2:] = y0[y.shape[0] // 2:]
-            return y, info
-        patch(em, "run_dense_optimization", halved)
+        def halved(dense):
+            def run(y0, *a, **kw):
+                y, info = dense(y0, *a, **kw)
+                y = y.clone()
+                y[y.shape[0] // 2:] = y0[y.shape[0] // 2:].to(y.device)
+                return y, info
+            return run
+        for obj, name, dense in optimizers:
+            patch(obj, name, halved(dense))
     elif kind == "graph":
         def projection(*a, **kw):
             p = build_projection(*a, **kw)
@@ -113,6 +152,24 @@ def planted(kind: str):
             return sweeps(y, y_src, edges, scale, gammas, offsets, groups, b,
                           max(1, n_neg * 2 // 5), *a, **kw)
         patch(od, "dense_sweeps", fewer_kicks)
+
+        def fewer_kick_rows(y, a, lo, offset, idx_full, scale, gamma, b,
+                            n_neg, *r, **kw):
+            return kick_rows(y, a, lo, offset, idx_full, scale, gamma, b,
+                             max(1, n_neg * 2 // 5), *r, **kw)
+        patch(ds, "dense_kick_rows", fewer_kick_rows)
+    elif kind == "exchange_dropped":
+        segment_of = sh.make_sharded_dense_segment
+
+        def own_blocks(mesh, *a, **kw):
+            stale = OwnBlock(mesh)
+            segment = segment_of(stale, *a, **kw)
+
+            def run(y0, *sa, **skw):
+                stale.y = y0.to(torch.float32)
+                return segment(y0, *sa, **skw)
+            return run
+        patch(sh, "make_sharded_dense_segment", own_blocks)
     elif kind == "sweeps_skipped":
         def fewer_sweeps(y, y_src, edges, scale, gammas, offsets, groups,
                          *a, **kw):
@@ -134,6 +191,17 @@ def planted(kind: str):
                 rounded(y)
             return y
         patch(od, "dense_sweeps", bf16_sweeps)
+        sharded = sh.sharded_dense_optimize
+
+        def bf16_kick_rows(*a, **kw):
+            rows = kick_rows(*a, **kw)
+            rounded(rows)
+            return rows
+
+        def bf16_sharded(y0, *a, **kw):
+            return sharded(y0.to(torch.bfloat16).to(torch.float32), *a, **kw)
+        patch(ds, "dense_kick_rows", bf16_kick_rows)
+        patch(sh, "sharded_dense_optimize", bf16_sharded)
     else:
         raise ValueError(f"unknown fault {kind!r}")
     try:

@@ -20,6 +20,9 @@ covers every embed it started).  With ``trace`` one more embed runs under
 the profiler.  Then, outside the window and with the program's state
 freed, the plain reference (``reference/exact.py``) judges the last
 embed: its graph, its projection and its embedding.
+
+A cell whose ``chips`` is above 1 runs on a mesh of that many ranks
+instead (``mesh.py``): the same steps, every rank in step.
 """
 
 from __future__ import annotations
@@ -99,11 +102,21 @@ def load_file(base: Path, kind: str, name: str):
     return mod
 
 
+class ForbiddenModules(RuntimeError):
+    """A rank of the run loaded a module a run must not load."""
+
+
 def forbidden_modules() -> list:
     """Loaded modules whose top-level name is one a run must not load,
     compared as whole names."""
     return sorted({m.split(".")[0] for m in list(sys.modules)}
                   & set(FORBIDDEN))
+
+
+def chips_of(root: Path, name: str) -> int:
+    """The cards the cell ``name`` asks for in BENCHMARK.json."""
+    bench = load_json(root / "BENCHMARK.json")
+    return int(by_name(bench["workloads"], name, "workload")["chips"])
 
 
 def metrics_of(bench: dict, cell: str, trace: bool) -> list:
@@ -299,14 +312,23 @@ def readings_of(ref: Reference, y_host, graph, proj, full) -> dict:
     return out
 
 
+def stderr_log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
 def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
              t_start: float, device: str = "cuda",
              overrides: Optional[dict] = None, log=None) -> dict:
     """One run; returns the result's fields (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, optionally ``breakdown``, and
     ``compared`` last).  ``t_start`` is the process's start on the
-    ``time.perf_counter`` clock."""
-    log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
+    ``time.perf_counter`` clock.  A cell on more than one card runs on a
+    mesh (``mesh.run_cell``)."""
+    log = log or stderr_log
+    if chips_of(root, name) > 1:
+        from . import mesh
+        return mesh.run_cell(root, name, seed, seconds, trace, t_start,
+                             device, overrides, log)
     cell, x_host, labels, kw = prepare(root, name, seed, device, overrides)
     import annembed_tpu_torch as at
     n = x_host.shape[0]
@@ -376,21 +398,28 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool,
     run = Run(config=cell.config, mix=cell.mix, n=n, infos=infos,
               window_s=window_s, setup_s=setup_s, peak_bytes=peak,
               reference=readings, traced_info=traced_info, trace=trace_rec)
+    return result(cell, run, device, 1)
+
+
+def result(cell: Cell, run: Run, device: str, count: int) -> dict:
+    """The result's fields of a run on ``count`` cards: each metric of
+    the cell read from ``run``, the readings beside their limits."""
+    trace = run.trace is not None
     metrics = {}
-    for m in metrics_of(cell.bench, name, trace):
+    for m in metrics_of(cell.bench, cell.name, trace):
         v = load_file(cell.base, "metrics", m["name"]).read(run)
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    comp = compared(readings, cell.limits)
+    comp = compared(run.reference, cell.limits)
     correct = is_correct(comp)
     dev = {"platform": "gpu" if device == "cuda" else device,
            "kind": (torch.cuda.get_device_name(0) if device == "cuda"
                     else device),
-           "count": 1, "memory_peak_bytes": peak}
-    dev.update(tracing.device_summary(trace_rec))
-    out = {"correct": correct, "attempted": len(infos) + bool(trace),
+           "count": count, "memory_peak_bytes": run.peak_bytes}
+    dev.update(tracing.device_summary(run.trace))
+    out = {"correct": correct, "attempted": run.embeds + trace,
            "failed": 0 if correct else 1, "metrics": metrics, "device": dev}
-    if trace_rec is not None:
-        out["breakdown"] = trace_rec.breakdown()
+    if trace:
+        out["breakdown"] = run.trace.breakdown()
     out["compared"] = comp
     return out

@@ -9,8 +9,9 @@ object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
 end-to-end metrics, or with ``--trace 1`` its per-layer ones),
 ``device`` and, last, ``compared``: each number the check compared,
 with its limit.  The same numbers are the last lines of standard error.
-Without a CUDA card, or if a forbidden module was loaded, it prints no
-result and exits 1.
+Without the CUDA cards the cell asks for, or if a forbidden module was
+loaded on any rank, it prints no result and exits 1.  A cell on more
+than one card runs on a mesh (``mesh.py``), this process its rank 0.
 """
 
 from __future__ import annotations
@@ -61,12 +62,14 @@ def main(argv=None) -> int:
         print(f"portbench: the cell needs {chips} CUDA card(s); found "
               f"{count}", file=sys.stderr)
         return 1
-    out = harness.run_cell(root, args.workload, args.seed, args.seconds,
-                           bool(args.trace), _START)
-    found = harness.forbidden_modules()
-    if found:
-        print(f"portbench: forbidden modules loaded: {found}",
-              file=sys.stderr)
+    try:
+        out = harness.run_cell(root, args.workload, args.seed, args.seconds,
+                               bool(args.trace), _START)
+        found = harness.forbidden_modules()
+        if found:
+            raise harness.ForbiddenModules(f"rank 0: {found}")
+    except harness.ForbiddenModules as e:
+        print(f"portbench: forbidden modules loaded: {e}", file=sys.stderr)
         return 1
     for k, (v, lim) in out["compared"].items():
         print(f"compared {k} {v!r} limit {lim!r}", file=sys.stderr)
